@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
+the port (``kid_tpu_torch``) only.  Phases, each of which exits non-zero
+on failure:
+
+  1. card and build: the card's name and power limit, then the
+     ``fused_step`` kernel built from ``kid_tpu_torch/micro/csrc``;
+  2. the kernel against its plain PyTorch version on the card, on a seeded
+     synthetic batch (ncol=1000, nz 120 and 130, mixed and warm, rate
+     profiles on and off, float64 and float32);
+  3. the main path: mixed1 widened to 8192 columns x 120 levels in
+     float32 through ``run_case`` (150 spin-up steps) and ``simulate``
+     (50 steps into the updraft pulse, timed as 5 windows of 10 steps:
+     median and best), with a profile of 5 more steps, the kernel's launch
+     count, outputs checked finite and non-negative, and the kernel timed
+     against its plain version on the main path's own inputs;
+  4. end-to-end parity on the card: mixed1 and warm1_recon at 256 columns
+     from a seeded state at step 150, 20 steps through the kernel path
+     and through the plain path, in float64.
+
+The line before the last two is the card's name and power limit, then one
+JSON line describing every kernel, then ``{"ok": true, "device": ...}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# f32 peak outside the tensor cores and memory rate of an H100 SXM
+# (NVIDIA data sheet), used for the kernel's bound
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# sizes of the phases (columns)
+BATCH_NCOL = 1000      # kernel vs plain; not a multiple of any block
+MAIN_NX = 8192         # the main path, mixed1 widened
+E2E_NX = 256           # end-to-end parity
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def equiv_report(got: dict, want: dict, noise: float) -> float:
+    """The knife-edge tolerance model of tests/test_pallas.py::
+    _assert_equiv with noise threshold ``noise``: at most 0.5% of cells
+    over it and 0.2% regime flips (> 25%) per field; raises otherwise.
+    Returns the worst normalised error outside counted flips."""
+    parent = {"nc": "qc", "ni": "qi", "nr": "qr"}
+    worst = 0.0
+    for k, bt in want.items():
+        a = got[k].double().cpu().numpy()
+        b = bt.double().cpu().numpy()
+        if k in parent and parent[k] in want:
+            pa = got[parent[k]].double().cpu().numpy()
+            pb = want[parent[k]].double().cpu().numpy()
+            ghost = (np.abs(pa) < 1e-9) & (np.abs(pb) < 1e-9)
+            a = np.where(ghost, 0.0, a)
+            b = np.where(ghost, 0.0, b)
+        scale = np.abs(b) + 1e-3 * np.abs(b).max() + 1e-30
+        rel = np.abs(a - b) / scale
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{k}: non-finite kernel output")
+        n_noise = int((rel > noise).sum())
+        n_flip = int((rel > 0.25).sum())
+        if n_noise > max(3, 0.005 * rel.size):
+            raise AssertionError(f"{k}: {n_noise} cells over {noise:g}")
+        if n_flip > max(2, 0.002 * rel.size):
+            raise AssertionError(f"{k}: {n_flip} flipped cells")
+        worst = max(worst, float(np.sort(rel.ravel())[-1 - n_flip]))
+    return worst
+
+
+def make_batch(ncol, nz, seed, dtype, dev):
+    """Seeded synthetic columns (tests/test_pallas.py::_make_batch)."""
+    from kid_tpu_torch.micro.state import ColumnState
+    rng = np.random.default_rng(seed)
+    zc = (np.arange(nz) + 0.5) * (12000.0 / nz)
+    p = 101325.0 * np.exp(-zc / 8500.0)
+    t = np.maximum(288.0 - 0.0065 * zc, 210.0)
+    qv = 0.012 * np.exp(-zc / 2500.0)
+    rho = 0.622 * p / (287.04 * t * (qv + 0.622))
+
+    def b(x, scale=1.0):
+        arr = np.broadcast_to(x, (ncol, nz)).copy()
+        arr *= (1.0 + 0.2 * rng.random((ncol, 1)))
+        return torch.tensor(np.maximum(arr * scale, 0.0), dtype=dtype,
+                            device=dev)
+
+    cloud = np.where((zc > 500) & (zc < 3000), 1.0e-3, 0.0)
+    rain = np.where(zc < 2000, 3.0e-4, 0.0)
+    ice = np.where(zc > 6000, 5.0e-5, 0.0)
+    snow = np.where(zc > 5000, 2.0e-4, 0.0)
+    state = ColumnState(
+        t=b(t), qv=b(qv), qc=b(cloud), qi=b(ice), qr=b(rain), qs=b(snow),
+        qg=b(snow, 0.5), ni=b(np.where(ice > 0, 1.0e4, 0.0)),
+        nr=b(np.where(rain > 0, 1.0e5, 0.0)), nc=b(100.0e6 / rho),
+        nwfa=b(300.0e6 / rho), nifa=b(1.0e6 / rho))
+    pres = torch.tensor(np.broadcast_to(p, (ncol, nz)).copy(), dtype=dtype,
+                        device=dev)
+    dzq = torch.full((ncol, nz), 12000.0 / nz, dtype=dtype, device=dev)
+    return state, pres, dzq
+
+
+def flat(res):
+    st, ppt, diag = res
+    out = {f: getattr(st, f) for f in st._fields}
+    out.update({f"ppt_{f}": getattr(ppt, f) for f in ppt._fields})
+    out.update(diag)
+    return out
+
+
+def phase_kernel_vs_plain(dev):
+    from kid_tpu_torch.config import MicroConfig
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.fused_step import fused_step, fused_step_ref
+    from kid_tpu_torch.tables.cache import get_tables
+    for nz in (120, 130):
+        for cfg in (MicroConfig(iiwarm=False), MicroConfig(iiwarm=True)):
+            for dtype in (torch.float64, torch.float32):
+                tables = S.device_tables(get_tables(iiwarm=cfg.iiwarm),
+                                         dtype, dev)
+                st, pres, dzq = make_batch(BATCH_NCOL, nz, 0, dtype, dev)
+                pro, idx = S._prologue(st, pres, cfg)
+                tv = S._table_stage(pro, idx, tables, cfg, 10.0)
+                for want_rates in (True, False):
+                    got = fused_step(st, pres, dzq, tv, cfg, 10.0,
+                                     want_rates)
+                    ref = fused_step_ref(st, pres, dzq, tv, cfg, 10.0,
+                                         want_rates)
+                    torch.cuda.synchronize()
+                    noise = 1e-9 if dtype == torch.float64 else 1e-3
+                    worst = equiv_report(flat(got), flat(ref), noise)
+                    print(f"kernel vs plain  nz={nz} "
+                          f"{'warm ' if cfg.iiwarm else 'mixed'} "
+                          f"{str(dtype)[6:]} rates={int(want_rates)}: "
+                          f"worst normalised error {worst:.3e} "
+                          f"(limit {noise:g})", flush=True)
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the elementwise arithmetic, comparison, selection and
+    transcendental operations (output elements) of the ops it sees."""
+
+    NAMES = {"add", "sub", "rsub", "mul", "div", "neg", "exp", "log",
+             "log10", "sqrt", "rsqrt", "pow", "maximum", "minimum", "clamp",
+             "clamp_min", "clamp_max", "where", "gt", "lt", "ge", "le",
+             "eq", "ne", "abs", "sign", "floor", "reciprocal",
+             "logical_and", "logical_or", "logical_not", "bitwise_and",
+             "bitwise_or", "bitwise_not", "sin"}
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket.__name__ in self.NAMES:
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.ops += t.numel()
+        return out
+
+
+def time_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def phase_main_path(dev, card):
+    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.driver.cases import MIXED1
+    from kid_tpu_torch.driver.loop import KidState, run_case, simulate
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+
+    case = dataclasses.replace(MIXED1, nx=MAIN_NX)
+    dtype = torch.float32
+    n_spin, n_timed, n_window = 150, 50, 10
+    t0 = time.perf_counter()
+    st, _ = run_case(case, dtype, n_steps=n_spin, device=dev)
+    torch.cuda.synchronize()
+    print(f"main path spin-up: {n_spin} steps in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tables = device_tables(get_tables(iiwarm=False), dtype, dev)
+
+    packed = []
+    pack = F.pack_inputs
+
+    def recording_pack(*args):           # keeps the last kernel input
+        x = pack(*args)
+        packed[:] = [x]
+        return x
+
+    F.pack_inputs = recording_pack
+    window_ms, ppts = [], []
+    final = st
+    F.fused_step.launches = 0
+    for w in range(n_timed // n_window):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        final, out = simulate(final, tables, case, n_window,
+                              istep0=n_spin + w * n_window, device=dev)
+        e1.record()
+        torch.cuda.synchronize()
+        window_ms.append(e0.elapsed_time(e1) / n_window)
+        ppts.append(out)
+    launches = F.fused_step.launches
+    F.pack_inputs = pack
+    step_ms = float(np.median(window_ms))
+    if launches != n_timed:
+        raise AssertionError(f"{launches} kernel launches in {n_timed} steps")
+    for f in KidState._fields:
+        v = getattr(final, f)
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"main path: non-finite {f}")
+        if f not in ("theta",) and float(v.min()) < 0.0:
+            raise AssertionError(f"main path: negative {f}")
+    rain = 0.0
+    for out in ppts:
+        for p in (out.ppt_rain, out.ppt_snow, out.ppt_graupel, out.ppt_ice):
+            if not torch.isfinite(p).all() or float(p.min()) < 0.0:
+                raise AssertionError("main path: bad precip stream")
+        rain += float(out.ppt_rain.sum())
+    best_ms = min(window_ms)
+    print(f"main path mixed1 ({case.nx}, {case.nz}) f32, "
+          f"{len(window_ms)} windows of {n_window} steps: median "
+          f"{step_ms:.3f} ms/step ({case.nx * 1e3 / step_ms:.0f} "
+          f"column-steps/s), best {best_ms:.3f} ms/step "
+          f"({case.nx * 1e3 / best_ms:.0f} column-steps/s), windows "
+          f"{' '.join(f'{m:.3f}' for m in window_ms)} ms/step; "
+          f"{launches} launches in {n_timed} steps, "
+          f"qc max {float(final.qc.max()):.3e}, qs max "
+          f"{float(final.qs.max()):.3e}, rain in the timed steps "
+          f"{rain:.3e} [{card}]", flush=True)
+    profile_steps(dev, card, final, tables, case, n_spin + n_timed,
+                  step_ms)
+
+    # the kernel and its plain version on the main path's last input
+    x = packed[0]
+    cfg, dt_f = case.micro, case.dt
+    st_in = ColumnState(*x[:12])
+    tv = dict(zip(S.tv_keys(cfg), x[14:]))
+    y, ppt = F.launch_packed(x, cfg, dt_f, False)
+    ref = F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False)
+    torch.cuda.synchronize()
+    got = flat(F.unpack_outputs(y, ppt, False))
+    want = flat(ref)
+    worst = equiv_report(got, want, 1e-3)
+    max_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
+    ms = time_ms(lambda: F.launch_packed(x, cfg, dt_f, False), 50)
+    plain_ms = time_ms(
+        lambda: F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False),
+        5)
+    counter = OpCounter()
+    with counter:
+        F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False)
+    n_bytes = (x.numel() + y.numel() + ppt.numel()) * x.element_size()
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    ops_ms = counter.ops / PEAK_F32_OPS * 1e3
+    print(f"fused_step at the main path's input {tuple(x.shape[1:])} f32: "
+          f"{ms:.4f} ms/launch, plain version {plain_ms:.3f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f} MB -> "
+          f"{bytes_ms:.4f} ms, {counter.ops / 1e9:.2f} G elementwise ops "
+          f"-> {ops_ms:.4f} ms), worst normalised error {worst:.3e} "
+          f"(limit 1e-3), max abs error {max_abs:.3e} [{card}]",
+          flush=True)
+    return dict(
+        name="fused_step", route="cuda",
+        source="kid_tpu_torch/micro/csrc/fused_step.cu",
+        replaces="kid_tpu/micro/pallas_step.py:353", launches=launches,
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None)
+
+
+def profile_steps(dev, card, st, tables, case, istep0, step_ms, n=5):
+    """Where a main-path step's device time goes: ``torch.profiler`` over
+    ``n`` steps, self device time by kernel, the number of kernels a step
+    launches, and the device's busy share of the unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kid_tpu_torch.driver.loop import simulate
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        simulate(st, tables, case, n, istep0=istep0, device=dev)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(r[1] for r in rows)
+    if total == 0.0:
+        print("profile: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return
+    kernels = sum(r[2] for r in rows)
+    fused = sum(r[1] for r in rows if "fused_step_kernel" in r[0])
+    print(f"profile of {n} main-path steps: device time {total:.3f} "
+          f"ms/step in {kernels:.0f} kernels/step, busy share "
+          f"{total / step_ms:.3f} of the unprofiled {step_ms:.3f} ms/step; "
+          f"fused_step {fused:.3f} ms/step ({fused / total:.3f} of device "
+          f"time) [{card}]", flush=True)
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  {ms:8.4f} ms/step {cnt:6.1f}x  {key[:90]}", flush=True)
+
+
+def seeded_state(case, dev, seed=0):
+    """The case's initial sounding plus seeded hydrometeor layers."""
+    from kid_tpu_torch.driver.loop import KidState, initial_state
+    rng = np.random.default_rng(seed)
+    st = initial_state(case, torch.float64, dev)._asdict()
+    z = case.grid().z
+
+    def layer(lo, hi, amp):
+        prof = np.where((z > lo * case.ztop) & (z < hi * case.ztop), amp,
+                        0.0)
+        arr = prof[None, :] * (1.0 + 0.3 * rng.random((case.nx, 1)))
+        return torch.tensor(arr, dtype=torch.float64, device=dev)
+
+    st["qc"] = layer(0.1, 0.3, 5.0e-4)
+    st["qr"] = layer(0.0, 0.25, 2.0e-4)
+    st["nr"] = (st["qr"] > 0).to(torch.float64) * 1.0e5
+    if not case.micro.iiwarm:
+        st["qi"] = layer(0.5, 0.9, 3.0e-5)
+        st["ni"] = (st["qi"] > 0).to(torch.float64) * 1.0e4
+        st["qs"] = layer(0.4, 0.8, 1.0e-4)
+        st["qg"] = layer(0.3, 0.6, 5.0e-5)
+    return KidState(**st)
+
+
+def phase_end_to_end(dev):
+    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.driver.cases import CASES
+    from kid_tpu_torch.driver.loop import simulate
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    for name in ("mixed1", "warm1_recon"):
+        case = dataclasses.replace(CASES[name], nx=E2E_NX)
+        tables = device_tables(get_tables(iiwarm=case.micro.iiwarm),
+                               torch.float64, dev)
+        st0 = seeded_state(case, dev)
+        n0 = F.fused_step.launches
+        k_st, k_out = simulate(st0, tables, case, 20, istep0=150, device=dev)
+        if F.fused_step.launches - n0 != 20:
+            raise AssertionError("kernel path did not launch the kernel")
+        kernel = F.fused_step
+        F.fused_step = F.fused_step_ref      # the plain path, on the card
+        try:
+            p_st, p_out = simulate(st0, tables, case, 20, istep0=150,
+                                   device=dev)
+        finally:
+            F.fused_step = kernel
+        torch.cuda.synchronize()
+        worst = equiv_report(k_st._asdict(), p_st._asdict(), 1e-8)
+        for k in ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice"):
+            a = getattr(k_out, k).cpu().numpy()
+            b = getattr(p_out, k).cpu().numpy()
+            np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-20,
+                                       err_msg=f"{name} {k}")
+        print(f"end to end {name} ({case.nx} columns, 20 steps, f64): kernel "
+              f"path "
+              f"vs plain path worst normalised error {worst:.3e} (limit "
+              f"1e-8), precip streams within rtol 1e-8, rain "
+              f"{float(k_out.ppt_rain.sum()):.4e}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import kid_tpu_torch.micro.fused_step as F
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"fused_step build: {F.build():.1f} s", flush=True)
+    phase_kernel_vs_plain(dev)
+    record = phase_main_path(dev, card)
+    phase_end_to_end(dev)
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(card)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,226 @@
+"""Standard KiD case definitions (twin of ``kid_tpu/driver/cases.py``,
+same cases and constants).
+
+The KiD framework (Shipway & Hill 2012) drives microphysics with prescribed
+kinematic flow and idealized soundings.  The exact case constants are not
+recoverable from the reference checkout (only the wrapper survives), so the
+definitions here follow the published KiD case design: half-period sinusoidal
+updrafts for the 1-D cases (warm1/mixed1/deep1) and a periodic
+stream-function circulation for the 2-D cases.  Each case's flow is factored
+into STATIC spatial patterns times a SCALAR time modulation so the
+time loop only needs one scalar per step:
+
+    w_face(x, z, t) = m(t) * W(x, z),   u_face(x, z, t) = u0 + m(t) * U(x, z)
+
+with m(t) either a half-sine pulse or a ramp to steady state.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import numpy as np
+
+from ..config import MicroConfig
+from .grid import Grid, make_grid
+
+
+@dataclasses.dataclass(frozen=True)
+class Case:
+    name: str
+    nz: int
+    nx: int
+    ztop: float
+    dt: float
+    t_final: float
+    micro: MicroConfig
+    theta_init: Callable[[np.ndarray], np.ndarray]
+    qv_init: Callable[[np.ndarray], np.ndarray]
+    w1: float = 2.0            # updraft amplitude [m/s]
+    t1: float = 600.0          # pulse half-period / ramp time [s]
+    modulation: str = "pulse"  # "pulse" -> sin(pi t/t1) for t<t1; "ramp"
+    dx: float = 0.0            # horizontal spacing (2-D cases)
+    u0: float = 0.0            # background horizontal wind (2-D cases)
+    # optional per-kg aerosol profiles [#/kg](z) for aerosol-aware cases;
+    # None -> the reference's non-aerosol fills (f90:957-964)
+    nwfa_init: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    nifa_init: Optional[Callable[[np.ndarray], np.ndarray]] = None
+
+    def grid(self) -> Grid:
+        zc = self.ztop / self.nz * (np.arange(self.nz) + 0.5)
+        return make_grid(self.nz, self.ztop, self.theta_init(zc))
+
+    # -- static flow patterns (face MASS fluxes rho0*w, rho0*u) --------------
+    # 2-D fluxes come from differencing a discrete stream function psi at
+    # cell corners, so the discrete divergence telescopes to zero exactly;
+    # 1-D fluxes are rho0_face * w(z) and the driver adds the compensating
+    # d*_div term (see advection.divergence_tendency_z).
+    def _psi(self, grid: Grid) -> np.ndarray:
+        """Stream function at cell corners, ((nx+1), (nz+1))."""
+        zface = np.concatenate([[0.0], np.cumsum(grid.dz)])
+        xf = np.arange(self.nx + 1) * self.dx
+        lx = self.nx * self.dx
+        rho00 = grid.rho0[0]
+        return (rho00 * self.w1 * lx / (2.0 * np.pi)
+                * np.sin(np.pi * zface / self.ztop)[None, :]
+                * np.sin(2.0 * np.pi * xf / lx)[:, None])
+
+    @property
+    def is_1d(self) -> bool:
+        """True for column cases (no x-advection).  Keyed on dx rather
+        than nx so a 1-D case can be WIDENED to nx identical columns (the
+        flagship throughput benchmark runs mixed1/warm1 at nx=8192, each
+        column the true case)."""
+        return self.dx == 0.0
+
+    def rhow_pattern(self, grid: Grid) -> np.ndarray:
+        """F_z(x, z) = rho0*w at z-faces, (nx, nz+1)."""
+        zface = np.concatenate([[0.0], np.cumsum(grid.dz)])
+        rho_face = np.concatenate([grid.rho0[:1],
+                                   0.5 * (grid.rho0[1:] + grid.rho0[:-1]),
+                                   grid.rho0[-1:]])
+        if self.is_1d:
+            wz = self.w1 * np.sin(np.pi * zface / self.ztop)
+            return np.broadcast_to((rho_face * wz)[None, :],
+                                   (self.nx, self.nz + 1))
+        psi = self._psi(grid)
+        return np.diff(psi, axis=0) / self.dx           # (nx, nz+1)
+
+    def rhou_pattern(self, grid: Grid) -> Optional[np.ndarray]:
+        """F_x(x, z) = rho0*u at x-faces, (nx+1, nz); circulation part only
+        (the u0 background is added in the loop as rho0*u0)."""
+        if self.is_1d:
+            return None
+        psi = self._psi(grid)
+        return -np.diff(psi, axis=1) / grid.dz[None, :]  # (nx+1, nz)
+
+    def time_modulation(self, t: float) -> float:
+        """Scalar m(t) of a Python float time (host side)."""
+        if self.modulation == "pulse":
+            return math.sin(math.pi * t / self.t1) if t < self.t1 else 0.0
+        return min(t / self.t1, 1.0)                  # ramp to steady
+
+    @property
+    def n_steps(self) -> int:
+        return int(round(self.t_final / self.dt))
+
+
+def _theta_const(v):
+    return lambda z: np.full_like(z, v, dtype=np.float64)
+
+
+def _qv_exp(q0, h):
+    return lambda z: q0 * np.exp(-z / h)
+
+
+WARM1_RECON = Case(
+    # Shipway & Hill (2012) WC1: 3 km column, w = 2 m/s * sin(pi t/1200 s)
+    # half-sine pulse (peak at 600 s, off after 1200 s), 1 h run.  The
+    # thermodynamic sounding is a reconstruction (theta ~ 288 K, moist
+    # boundary layer); the published profile tables are not in the
+    # checkout.  Kept as the nz=120 variant of warm1 (bench history runs
+    # this shape); the DEFAULT warm1 below carries the published
+    # constants (VERDICT r4 next #6).
+    name="warm1_recon", nz=120, nx=1, ztop=3000.0, dt=1.0, t_final=3600.0,
+    micro=MicroConfig(iiwarm=True),
+    theta_init=_theta_const(288.0),
+    qv_init=_qv_exp(0.015, 2000.0),
+    w1=2.0, t1=1200.0)
+
+MIXED1 = Case(
+    name="mixed1", nz=120, nx=1, ztop=10000.0, dt=2.0, t_final=3600.0,
+    micro=MicroConfig(iiwarm=False),
+    theta_init=lambda z: 273.15 + 2.0e-3 * z,       # cold, weakly stable
+    qv_init=_qv_exp(0.0045, 2500.0),
+    w1=2.0, t1=600.0)
+
+DEEP1 = Case(
+    name="deep1", nz=120, nx=1, ztop=16000.0, dt=2.0, t_final=3600.0,
+    micro=MicroConfig(iiwarm=False),
+    theta_init=lambda z: 297.0 + np.where(z < 12000.0, 3.0e-3 * z,
+                                          36.0 + 0.01 * (z - 12000.0)),
+    qv_init=_qv_exp(0.016, 2200.0),
+    w1=8.0, t1=1200.0)
+
+def _qv_sh2012(z):
+    """Shipway & Hill (2012) warm-1 vapor sounding as mirrored by the
+    public KiD ports: piecewise-linear through (0 m, 15 g/kg),
+    (740 m, 13.8 g/kg), (top 3260 m, 2.4 g/kg).  The original paper's
+    tables are not retrievable in this offline environment; constants
+    follow the widely-mirrored setup (e.g. the PySDM Shipway & Hill 2012
+    kinematic-1D example) and are kept as a VARIANT so the validated
+    default warm1 is unchanged."""
+    return np.interp(z, [0.0, 740.0, 3260.0],
+                     [0.015, 0.0138, 0.0024])
+
+
+WARM1 = Case(
+    # The DEFAULT warm1: published Shipway & Hill (2012) constants —
+    # constant potential temperature 297.9 K, the piecewise-linear qv
+    # sounding above, 25 m layers to 3250 m, w = 2 m/s * sin(pi t/1200 s)
+    # half-sine updraft pulse.  Promoted from the former warm1_sh2012
+    # variant (it is published-spec and oracle-validated identically);
+    # the old reconstruction survives as warm1_recon.
+    name="warm1", nz=130, nx=1, ztop=3250.0, dt=1.0,
+    t_final=3600.0,
+    micro=MicroConfig(iiwarm=True),
+    theta_init=_theta_const(297.9),
+    qv_init=_qv_sh2012,
+    w1=2.0, t1=1200.0)
+
+# back-compat symbol: the published-spec case IS warm1 now
+WARM1_SH2012 = WARM1
+
+AEROSOL1D = Case(
+    # Aerosol-aware twin of mixed1: prognostic nc/nwfa/nifa advected by the
+    # driver, CCN activation + DeMott/Koop nucleation active
+    # (module_mp_thompson09n.f90:950-956 gather, :2398-2408 tendencies).
+    # Aerosol profiles: boundary-layer-loaded exponentials (Thompson-
+    # Eidhammer-style surface maxima, decaying with height).
+    name="aerosol1d", nz=120, nx=1, ztop=10000.0, dt=2.0, t_final=3600.0,
+    micro=MicroConfig(iiwarm=False, is_aerosol_aware=True),
+    theta_init=lambda z: 273.15 + 2.0e-3 * z,
+    qv_init=_qv_exp(0.0045, 2500.0),
+    w1=2.0, t1=600.0,
+    nwfa_init=_qv_exp(300.0e6, 3000.0),     # CCN ~300/mg at the surface
+    nifa_init=_qv_exp(1.0e6, 4000.0))       # IN   ~1/mg at the surface
+
+CUMULUS2D = Case(
+    name="cumulus2d", nz=60, nx=64, ztop=3000.0, dt=2.0, t_final=1800.0,
+    micro=MicroConfig(iiwarm=True),
+    theta_init=_theta_const(288.0),
+    qv_init=_qv_exp(0.015, 2000.0),
+    w1=2.0, t1=900.0, dx=100.0)
+
+OROGRAPHIC2D = Case(
+    name="orographic2d", nz=60, nx=64, ztop=5000.0, dt=2.0, t_final=1800.0,
+    micro=MicroConfig(iiwarm=False),
+    theta_init=lambda z: 278.0 + 3.0e-3 * z,
+    qv_init=_qv_exp(0.005, 2500.0),
+    w1=1.0, t1=120.0, modulation="ramp", dx=250.0, u0=10.0)
+
+CASES = {c.name: c for c in [WARM1, WARM1_RECON, MIXED1, DEEP1, AEROSOL1D,
+                             CUMULUS2D, OROGRAPHIC2D]}
+
+# Per-case sounding provenance (README table; VERDICT r4 next #6): the
+# reference checkout ships only the microphysics wrapper
+# (mphys_thompson09n.f90:11-17 assumes the KiD shell), so each case
+# states whether its constants are published-spec or a documented
+# reconstruction.  PAPERS.md holds no KiD case tables; no network egress
+# exists to retrieve the originals for the mixed-phase/deep/2-D cases.
+PROVENANCE = {
+    "warm1": "published-spec (Shipway & Hill 2012 constants as mirrored "
+             "by public KiD ports, e.g. the PySDM kinematic-1D example)",
+    "warm1_recon": "reconstruction (theta=288 K, exponential qv; the "
+                   "pre-round-5 default warm1, kept for bench history)",
+    "mixed1": "reconstruction (cold weakly-stable sounding; published "
+              "mixed-phase tables not retrievable offline)",
+    "deep1": "reconstruction (tropical-like deep sounding, w1=8 m/s)",
+    "aerosol1d": "reconstruction (mixed1 sounding + Thompson-Eidhammer-"
+                 "style exponential CCN/IN loadings)",
+    "cumulus2d": "reconstruction (stream-function circulation per the "
+                 "KiD 2-D case design)",
+    "orographic2d": "reconstruction (ramped flow over a wave forcing "
+                    "per the KiD orographic case design)",
+}

@@ -1,0 +1,243 @@
+"""KiD time loop: prescribed-flow advection -> microphysics -> update
+(twin of ``kid_tpu/driver/loop.py`` for the 1-D non-aerosol cases).
+
+The adapter contract of mphys_thompson09n.f90:28-310 is kept:
+
+  * microphysics sees the provisional state ``x + (adv + div)*dt``
+    (mphys_thompson09n.f90:60-93);
+  * theta <-> T through the fixed Exner profile (:60-61);
+  * the microphysics output becomes the new state (the final update
+    ``x + (adv + div + mphys)*dt`` telescopes, :198-245).
+
+The loop is a Python loop over steps.  The time modulation m(t) is computed
+on the host from the step index, and the per-step precip and profile
+streams are written into device tensors, so a step never waits for the
+device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import constants as c
+from ..device import check_on, resolve_device
+from ..micro import ColumnState, batched_microphysics
+from ..micro.solver import device_tables
+from ..tables.cache import get_tables
+from .advection import advective_tendency_z, divergence_tendency_z
+from .cases import Case
+
+# Where the cases this slice does not run will come from.
+_TODO_2D = "2-D cases are not ported yet (ROADMAP.md, Queue 1 item 6)"
+_TODO_AEROSOL = ("aerosol-aware cases are not ported yet (ROADMAP.md, "
+                 "Queue 1 item 5)")
+
+
+class KidState(NamedTuple):
+    """Driver prognostics, all (nx, nz).  nc/nwfa/nifa are carried like
+    the other tracers; in non-aerosol mode the solver forces nc itself and
+    nothing reads nwfa, which drifts inertly (see the reference package)."""
+
+    theta: torch.Tensor
+    qv: torch.Tensor
+    qc: torch.Tensor
+    qr: torch.Tensor
+    nr: torch.Tensor
+    qi: torch.Tensor
+    ni: torch.Tensor
+    qs: torch.Tensor
+    qg: torch.Tensor
+    nc: torch.Tensor
+    nwfa: torch.Tensor
+    nifa: torch.Tensor
+
+
+class StepOutputs(NamedTuple):
+    """Per-step diagnostic streams, stacked over a leading time axis."""
+
+    ppt_rain: torch.Tensor      # (n_steps, nx) surface precip per step
+    ppt_snow: torch.Tensor
+    ppt_graupel: torch.Tensor
+    ppt_ice: torch.Tensor
+    profiles: dict              # name -> (n_steps, nx, nz)
+
+
+# the wrapper's microphysics-tendency back-outs (mphys_thompson09n.f90:
+# 198-245): (micro_out - provisional)/dt
+MPHYS_TENDENCY_NAMES = (
+    "dtheta_mphys", "dqv_mphys", "dqc_mphys", "dqr_mphys", "dnr_mphys",
+    "dqi_mphys", "dni_mphys", "dqs_mphys", "dqg_mphys")
+
+# the solver's 36 per-level process-rate streams
+# (module_mp_thompson09n.f90:2963-3124); keys of the solver diag dict
+RATE_NAMES = (
+    "prr_wau", "prr_rcw", "prv_rev", "pnr_wau", "pnr_rev", "pnr_rcr",
+    "pri_inu", "pri_ide", "prs_ide", "prs_sde", "prg_gde", "pri_wfz",
+    "prs_scw", "prg_scw", "prg_gcw", "pri_ihm", "pri_rfz", "prs_iau",
+    "prs_sci", "pri_rci", "pni_inu", "pni_ihm", "pni_wfz", "pni_rfz",
+    "pni_ide", "pni_iau", "pni_sci", "pni_rci", "prr_sml", "prr_gml",
+    "pnr_rcs", "pnr_rcg", "pnr_rci", "pnr_sml", "pnr_gml", "pnr_rfz")
+
+ALL_PROFILE_NAMES = KidState._fields + RATE_NAMES + MPHYS_TENDENCY_NAMES
+
+
+def resolve_profile_names(profile_diags) -> tuple:
+    """``False``/``()`` -> no streams; ``True`` -> every stream; a tuple
+    of names selects those streams."""
+    if profile_diags is True:
+        return ALL_PROFILE_NAMES
+    if not profile_diags:
+        return ()
+    names = tuple(profile_diags)
+    unknown = [n for n in names if n not in ALL_PROFILE_NAMES]
+    if unknown:
+        raise ValueError(f"unknown diagnostic streams: {unknown}")
+    return names
+
+
+def initial_state(case: Case, dtype=torch.float64, device="cuda") -> KidState:
+    """The case's initial sounding on ``device``, dry and cloud-free."""
+    dev = resolve_device(device)
+    grid = case.grid()
+    shape = (case.nx, case.nz)
+    nc0 = case.micro.nt_c / grid.rho0
+    nwfa0 = (case.nwfa_init(grid.z) if case.nwfa_init is not None
+             else 11.1e6 / grid.rho0)
+    nifa0 = (case.nifa_init(grid.z) if case.nifa_init is not None
+             else c.NA_IN1 * 0.01 / grid.rho0)
+
+    def bcast(p):
+        return torch.as_tensor(np.broadcast_to(p, shape).copy(),
+                               dtype=dtype).to(dev)
+
+    z = torch.zeros(shape, dtype=dtype, device=dev)
+    return KidState(
+        theta=bcast(case.theta_init(grid.z)), qv=bcast(case.qv_init(grid.z)),
+        qc=z, qr=z, nr=z, qi=z, ni=z, qs=z, qg=z,
+        nc=bcast(nc0), nwfa=bcast(nwfa0), nifa=bcast(nifa0))
+
+
+def advected_fields(cfg) -> tuple:
+    """The tracers the kinematic shell advects: the 9 scheme fields
+    (mphys_thompson09n.f90:198-245), without the identically-zero ice
+    species in warm-only cases; nc/nwfa/nifa only in aerosol mode."""
+    if cfg.is_aerosol_aware:
+        return KidState._fields
+    if cfg.iiwarm:
+        return ("theta", "qv", "qc", "qr", "nr")
+    return ("theta", "qv", "qc", "qr", "nr", "qi", "ni", "qs", "qg")
+
+
+def make_step(case: Case, tables, dtype, device, w_pat, pres2,
+              profile_names: tuple):
+    """The per-step function (advect -> microphysics -> update).
+
+    Args:
+      w_pat:  (nx, nz+1) rho0*w z-face pattern.
+      pres2:  (nx, nz) pressure.
+      profile_names: from ``resolve_profile_names``.
+    Returns ``step(state, istep) -> (new state, (4, nx) precip, profiles)``.
+    """
+    dev = resolve_device(device)
+    grid = case.grid()
+
+    def prof(a):
+        return torch.as_tensor(a, dtype=dtype).to(dev)
+
+    dz = prof(grid.dz)
+    rho0 = prof(grid.rho0)
+    exner = prof(grid.exner)[None, :]
+    dzq2 = torch.broadcast_to(dz, pres2.shape)
+    dt = case.dt
+    odt = 1.0 / dt
+    cfg = case.micro
+    want_rates = any(n in RATE_NAMES for n in profile_names)
+    adv_fields = advected_fields(cfg)
+    adv_idx = tuple(KidState._fields.index(f) for f in adv_fields)
+
+    def step(st: KidState, istep: int):
+        m = case.time_modulation(istep * dt)
+        w_face = m * w_pat                       # rho0*w at z-faces
+        q = torch.stack([st[i] for i in adv_idx])
+        ten = (advective_tendency_z(q, w_face, rho0, dz)
+               + divergence_tendency_z(q, w_face, rho0, dz))
+        prov = q + ten * dt
+        prov_named = dict(st._asdict())
+        prov_named.update(zip(adv_fields, prov))
+        micro_in = ColumnState(
+            t=prov_named["theta"] * exner, qv=prov_named["qv"],
+            qc=prov_named["qc"], qi=prov_named["qi"], qr=prov_named["qr"],
+            qs=prov_named["qs"], qg=prov_named["qg"], ni=prov_named["ni"],
+            nr=prov_named["nr"], nc=prov_named["nc"],
+            nwfa=prov_named["nwfa"], nifa=prov_named["nifa"])
+        out, ppt, diag = batched_microphysics(
+            micro_in, pres2, None, dzq2, dt, tables, cfg,
+            want_rates=want_rates, device=dev)
+        new = KidState(
+            theta=out.t / exner, qv=out.qv, qc=out.qc, qr=out.qr,
+            nr=out.nr, qi=out.qi, ni=out.ni, qs=out.qs, qg=out.qg,
+            nc=out.nc, nwfa=out.nwfa, nifa=out.nifa)
+        new_named = new._asdict()
+        profs = {}
+        for name in profile_names:
+            if name in diag:
+                profs[name] = diag[name]
+            elif name in new_named:
+                profs[name] = new_named[name]
+            else:
+                f = name[1:-len("_mphys")]
+                profs[name] = (new_named[f] - prov_named[f]) * odt
+        return new, torch.stack([ppt.rain, ppt.snow, ppt.graupel,
+                                 ppt.ice]), profs
+
+    return step
+
+
+def simulate(state0: KidState, tables, case: Case, n_steps: int,
+             profile_diags=False, istep0: int = 0, device="cuda"):
+    """Run ``n_steps`` of a 1-D non-aerosol case from ``state0``; returns
+    (final KidState, StepOutputs).  ``istep0`` is the number of steps
+    already taken, so a run can be chunked over several calls.  Every
+    tensor must lie on ``device``; raises without a GPU unless
+    ``device="cpu"``."""
+    if not case.is_1d:
+        raise NotImplementedError(_TODO_2D)
+    if case.micro.is_aerosol_aware:
+        raise NotImplementedError(_TODO_AEROSOL)
+    dev = resolve_device(device)
+    for t in state0:
+        check_on(t, dev)
+    grid = case.grid()
+    dtype = state0.qv.dtype
+    shape = (case.nx, case.nz)
+    pres2 = torch.broadcast_to(
+        torch.as_tensor(grid.pres, dtype=dtype).to(dev), shape)
+    w_pat = torch.as_tensor(np.ascontiguousarray(case.rhow_pattern(grid)),
+                            dtype=dtype).to(dev)
+    names = resolve_profile_names(profile_diags)
+    step = make_step(case, tables, dtype, dev, w_pat, pres2, names)
+    ppt = torch.empty((n_steps, 4, case.nx), dtype=dtype, device=dev)
+    profiles = {n: torch.empty((n_steps,) + shape, dtype=dtype, device=dev)
+                for n in names}
+    st = state0
+    for i in range(n_steps):
+        st, p, profs = step(st, istep0 + i)
+        ppt[i] = p
+        for n, v in profs.items():
+            profiles[n][i] = v
+    return st, StepOutputs(ppt_rain=ppt[:, 0], ppt_snow=ppt[:, 1],
+                           ppt_graupel=ppt[:, 2], ppt_ice=ppt[:, 3],
+                           profiles=profiles)
+
+
+def run_case(case: Case, dtype=torch.float64, n_steps=None,
+             profile_diags=False, device="cuda"):
+    """Tables + initial state + ``simulate`` on ``device``."""
+    dev = resolve_device(device)
+    tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype,
+                           device=dev)
+    state0 = initial_state(case, dtype, dev)
+    n = case.n_steps if n_steps is None else n_steps
+    return simulate(state0, tables, case, n, profile_diags, device=dev)

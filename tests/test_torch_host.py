@@ -1,0 +1,164 @@
+"""PyTorch port's host side against the JAX package, on the CPU: tables,
+index functions, power helpers, saturation polynomials, the package's
+import boundary and its device rule."""
+from __future__ import annotations
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from kid_tpu import special as jspecial
+from kid_tpu.micro import fastmath as jfast
+from kid_tpu.tables import builders as jbuild
+from kid_tpu.tables import index as jindex
+from kid_tpu.tables.cache import get_tables as j_get_tables
+from kid_tpu_torch import special as tspecial
+from kid_tpu_torch.convert import state_from_numpy, tables_from_numpy
+from kid_tpu_torch.driver.cases import MIXED1
+from kid_tpu_torch.driver.loop import initial_state, run_case
+from kid_tpu_torch.micro import fastmath as tfast
+from kid_tpu_torch.micro.solver import device_tables
+from kid_tpu_torch.tables import builders as tbuild
+from kid_tpu_torch.tables import index as tindex
+from kid_tpu_torch.tables.cache import get_tables as t_get_tables
+
+torch.set_num_threads(2)
+
+PKG = Path(__file__).resolve().parents[1] / "kid_tpu_torch"
+
+
+@pytest.mark.parametrize("iiwarm", [True, False], ids=["warm", "mixed"])
+def test_build_all_tables_array_equal(iiwarm):
+    want = jbuild.build_all_tables(iiwarm)
+    got = tbuild.build_all_tables(iiwarm)
+    assert got._fields == want._fields
+    for f in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tables_from_numpy_equals_device_tables(dtype):
+    got = tables_from_numpy(j_get_tables(iiwarm=False), dtype, "cpu")
+    want = device_tables(t_get_tables(iiwarm=False), dtype, "cpu")
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == dtype and a.device.type == "cpu"
+        assert torch.equal(a, b), f
+
+
+def _rand(seed, n, lo, hi, log=False):
+    rng = np.random.default_rng(seed)
+    if log:
+        return 10.0 ** rng.uniform(np.log10(lo), np.log10(hi), n)
+    return rng.uniform(lo, hi, n)
+
+
+def test_index_functions_match():
+    r = _rand(0, 4000, 1e-12, 1e-1, log=True)
+    for n2, ntb in ((-6, 37), (-12, 100), (-4, 55)):
+        np.testing.assert_array_equal(
+            tindex.decade_index(torch.as_tensor(r), n2, ntb).numpy(),
+            np.asarray(jindex.decade_index(jnp.asarray(r), n2, ntb)))
+    x = _rand(1, 4000, 1e-7, 1e-2, log=True)
+    np.testing.assert_array_equal(
+        tindex.log_bin_index(torch.as_tensor(x), 5e-6, 5e-3, 100).numpy(),
+        np.asarray(jindex.log_bin_index(jnp.asarray(x), 5e-6, 5e-3, 100)))
+    nc = _rand(2, 4000, 1e6, 1e10, log=True)
+    np.testing.assert_array_equal(
+        tindex.tnc_index(torch.as_tensor(nc), 1e7, 2, 100).numpy(),
+        np.asarray(jindex.tnc_index(jnp.asarray(nc), 1e7, 2, 100)))
+    v = _rand(3, 4000, -50.0, 50.0)
+    v[:4] = [-2.5, 2.5, 0.5, -0.5]
+    np.testing.assert_array_equal(tindex.fnint(torch.as_tensor(v)).numpy(),
+                                  np.asarray(jindex.fnint(jnp.asarray(v))))
+
+
+@pytest.mark.parametrize("p", [3.0, -4.0, 1.0 / 3.0, 0.25, 1.0 / 6.0, 2.5,
+                               0.75, 2.0 / 3.0, 0.89, 1.94, -3.55])
+def test_powc_matches(p):
+    x = _rand(4, 2000, 1e-6, 1e4, log=True)
+    np.testing.assert_allclose(tfast.powc(torch.as_tensor(x), p).numpy(),
+                               np.asarray(jfast.powc(jnp.asarray(x), p)),
+                               rtol=1e-13)
+
+
+def test_exp10_log10_match():
+    x = _rand(5, 2000, -30.0, 30.0)
+    np.testing.assert_allclose(tfast.exp10(torch.as_tensor(x)).numpy(),
+                               np.asarray(jfast.exp10(jnp.asarray(x))),
+                               rtol=1e-13)
+    y = _rand(6, 2000, 1e-30, 1e30, log=True)
+    np.testing.assert_allclose(tfast.log10(torch.as_tensor(y)).numpy(),
+                               np.asarray(jnp.log10(jnp.asarray(y))),
+                               rtol=1e-13)
+
+
+def test_saturation_polynomials_match():
+    p = _rand(7, 3000, 1.0e4, 1.05e5)
+    t = _rand(8, 3000, 180.0, 320.0)
+    for tf, jf in ((tspecial.rslf, jspecial.rslf),
+                   (tspecial.rsif, jspecial.rsif)):
+        np.testing.assert_allclose(
+            tf(torch.as_tensor(p), torch.as_tensor(t)).numpy(),
+            np.asarray(jf(jnp.asarray(p), jnp.asarray(t))), rtol=1e-13)
+    np.testing.assert_array_equal(tspecial.rslf_np(p, t),
+                                  jspecial.rslf_np(p, t))
+    np.testing.assert_array_equal(tspecial.rsif_np(p, t),
+                                  jspecial.rsif_np(p, t))
+
+
+def test_state_from_numpy_round_trip():
+    from kid_tpu.driver.loop import initial_state as j_initial_state
+    case = dataclasses.replace(MIXED1, nx=3)
+    from kid_tpu.driver.cases import MIXED1 as JMIXED1
+    jst = j_initial_state(dataclasses.replace(JMIXED1, nx=3), jnp.float64)
+    got = state_from_numpy(jst, device="cpu", dtype=torch.float64)
+    want = initial_state(case, torch.float64, "cpu")
+    assert type(got).__name__ == "KidState"
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference_package():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "kid_tpu", "flax"), (path,
+                                                                     mod)
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference_package():
+    path = PKG.parent / "chip_smoke.py"
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
+
+
+def test_entry_points_need_a_card_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_tables(t_get_tables(iiwarm=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_case(dataclasses.replace(MIXED1, nx=2), n_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tables_from_numpy(j_get_tables(iiwarm=True))
+    tabs = device_tables(t_get_tables(iiwarm=True), device="cpu")
+    assert tabs.t_efrw.device.type == "cpu"
