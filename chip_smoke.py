@@ -7,23 +7,34 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 the port (``kid_tpu_torch``) only.  Phases, each of which exits non-zero
 on failure:
 
-  1. card and build: the card's name and power limit, then the
-     ``fused_step`` kernel built from ``kid_tpu_torch/micro/csrc``;
-  2. the kernel against its plain PyTorch version on the card, on a seeded
-     synthetic batch (ncol=1000, nz 120 and 130, mixed and warm, rate
-     profiles on and off, float64 and float32);
+  1. card and build: the card's name and power limit, then the kernels
+     of ``kid_tpu_torch/micro/csrc`` (``fused_step``, ``fused_rates``,
+     ``fused_post``), built together;
+  2. ``fused_step`` against its plain PyTorch version on the card, on a
+     seeded synthetic batch (ncol=1000, nz 120 and 130, mixed and warm,
+     rate profiles on and off, float64 and float32);
+  2b. ``fused_rates`` and ``fused_post`` against their plain versions on
+     the same batches with aerosol-aware configs (``fused_post`` fed the
+     plain path's own p8 and lookups, so each kernel is held alone), and
+     a cold, ice-supersaturated batch whose printed counts show DeMott
+     nucleation and the aerosol tendencies firing;
   3. the main path: mixed1 widened to 8192 columns x 120 levels in
      float32 through ``run_case`` (150 spin-up steps) and ``simulate``
      (50 steps into the updraft pulse, timed as 5 windows of 10 steps:
      median and best), with a profile of 5 more steps, the kernel's launch
      count, outputs checked finite and non-negative, and the kernel timed
      against its plain version on the main path's own inputs;
-  4. end-to-end parity on the card: mixed1 and warm1_recon at 256 columns
-     from a seeded state at step 150, 20 steps through the kernel path
-     and through the plain path, in float64.
+  3b. the aerosol main path: aerosol1d widened the same way, through
+     ``fused_rates`` -> lookups -> ``fused_post`` (each launched once per
+     step), with the same checks, profile and timings;
+  4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
+     256 columns from a seeded state at step 150, 20 steps through the
+     kernel path and through the plain path, in float64.
 
-The line before the last two is the card's name and power limit, then one
-JSON line describing every kernel, then ``{"ok": true, "device": ...}``.
+Every kernel's launch count is set to 0 just before each main path is
+driven and read just after.  The line before the last two is the card's
+name and power limit, then one JSON line describing every kernel, then
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -85,14 +96,20 @@ def equiv_report(got: dict, want: dict, noise: float) -> float:
     return worst
 
 
-def make_batch(ncol, nz, seed, dtype, dev):
-    """Seeded synthetic columns (tests/test_pallas.py::_make_batch)."""
+def make_batch(ncol, nz, seed, dtype, dev, cold=False):
+    """Seeded synthetic columns (tests/test_pallas.py::_make_batch).
+    ``cold``: 20 K colder, down to 200 K, with the air above the 250 K
+    level at 1.45 times ice saturation (DeMott and Koop nucleation)."""
     from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.special import rsif_np
     rng = np.random.default_rng(seed)
     zc = (np.arange(nz) + 0.5) * (12000.0 / nz)
     p = 101325.0 * np.exp(-zc / 8500.0)
     t = np.maximum(288.0 - 0.0065 * zc, 210.0)
     qv = 0.012 * np.exp(-zc / 2500.0)
+    if cold:
+        t = np.maximum(268.0 - 0.0065 * zc, 200.0)
+        qv = np.where(t < 250.0, 1.45 * rsif_np(p, t), qv)
     rho = 0.622 * p / (287.04 * t * (qv + 0.622))
 
     def b(x, scale=1.0):
@@ -152,6 +169,73 @@ def phase_kernel_vs_plain(dev):
                           f"(limit {noise:g})", flush=True)
 
 
+def seeded_w(ncol, nz, seed, dtype, dev):
+    """Seeded cell-centred vertical velocity (m/s) for activation."""
+    rng = np.random.default_rng(seed + 100)
+    return torch.tensor(rng.uniform(0.01, 4.0, (ncol, nz)), dtype=dtype,
+                        device=dev)
+
+
+def split_vs_plain(st, pres, dzq, w, cfg, tables, want_rates, noise):
+    """``fused_rates`` and ``fused_post`` against their plain versions;
+    ``fused_post`` gets the plain path's own p8 and lookups.  Returns the
+    two worst normalised errors and the plain p8."""
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro import split_step as A
+    pro, idx = S._prologue(st, pres, cfg)
+    tv = S._table_stage(pro, idx, tables, cfg, 10.0)
+    p8_k = A.fused_rates(st, pres, tv, cfg, 10.0, want_rates)
+    p8 = A.fused_rates_ref(st, pres, tv, cfg, 10.0, want_rates)
+    torch.cuda.synchronize()
+    worst_r = equiv_report(p8_k, p8, noise)
+    aux = S.aerosol_lookup_stage(st, pres, w, p8, tables, cfg, 10.0)
+    got = A.fused_post(st, pres, dzq, p8, aux, cfg, 10.0, want_rates)
+    ref = A.fused_post_ref(st, pres, dzq, p8, aux, cfg, 10.0, want_rates)
+    torch.cuda.synchronize()
+    return worst_r, equiv_report(flat(got), flat(ref), noise), p8_k
+
+
+def phase_split_vs_plain(dev):
+    from kid_tpu_torch.config import MicroConfig
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.tables.cache import get_tables
+    for nz in (120, 130):
+        for warm in (False, True):
+            cfg = MicroConfig(iiwarm=warm, is_aerosol_aware=True)
+            for dtype in (torch.float64, torch.float32):
+                tables = S.device_tables(get_tables(iiwarm=warm), dtype, dev)
+                st, pres, dzq = make_batch(BATCH_NCOL, nz, 0, dtype, dev)
+                w = seeded_w(BATCH_NCOL, nz, 0, dtype, dev)
+                noise = 1e-9 if dtype == torch.float64 else 1e-3
+                for want_rates in (True, False):
+                    wr, wp, _ = split_vs_plain(st, pres, dzq, w, cfg, tables,
+                                               want_rates, noise)
+                    print(f"aerosol kernels vs plain  nz={nz} "
+                          f"{'warm ' if warm else 'mixed'} "
+                          f"{str(dtype)[6:]} rates={int(want_rates)}: "
+                          f"worst normalised error fused_rates {wr:.3e}, "
+                          f"fused_post {wp:.3e} (limit {noise:g})",
+                          flush=True)
+    # a cold batch: DeMott nucleation and the aerosol tendencies must fire
+    cfg = MicroConfig(iiwarm=False, is_aerosol_aware=True)
+    tables = S.device_tables(get_tables(iiwarm=False), torch.float64, dev)
+    st, pres, dzq = make_batch(BATCH_NCOL, 120, 1, torch.float64, dev,
+                               cold=True)
+    w = seeded_w(BATCH_NCOL, 120, 1, torch.float64, dev)
+    wr, wp, p8 = split_vs_plain(st, pres, dzq, w, cfg, tables, True, 1e-9)
+    counts = {k: int(v.sum()) for k, v in (
+        ("pri_inu>0", p8["pri_inu"] > 0), ("pni_inu>0", p8["pni_inu"] > 0),
+        ("nwfaten!=0", p8["nwfaten"] != 0),
+        ("nifaten!=0", p8["nifaten"] != 0),
+        ("T<238K", st.t < 238.0))}
+    print(f"aerosol kernels vs plain, cold batch ({BATCH_NCOL}, 120) f64: "
+          f"worst normalised error fused_rates {wr:.3e}, fused_post {wp:.3e} "
+          f"(limit 1e-9); cells of {BATCH_NCOL * 120}: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"cold batch: a process did not fire {counts}")
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the elementwise arithmetic, comparison, selection and
     transcendental operations (output elements) of the ops it sees."""
@@ -189,52 +273,79 @@ def time_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def phase_main_path(dev, card):
+def kernels():
+    """Every kernel wrapper of the port by name (each has a launch count)."""
     import kid_tpu_torch.micro.fused_step as F
-    from kid_tpu_torch.driver.cases import MIXED1
+    import kid_tpu_torch.micro.split_step as A
+    return {"fused_step": F.fused_step, "fused_rates": A.fused_rates,
+            "fused_post": A.fused_post}
+
+
+def reset_counts():
+    for fn in kernels().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernels().items()}
+
+
+def run_main_path(dev, card, case, path_kernels, packers):
+    """Spin-up, then 50 timed steps of ``case`` at full width in float32
+    with every launch count set to 0 just before and read just after;
+    checks the outputs and that each kernel of ``path_kernels`` launched
+    once per step (and no other kernel launched).  ``packers`` are
+    (module, function name) of the kernels' input packers: the last input
+    of each is kept.  Returns (launch counts, last inputs by packer)."""
     from kid_tpu_torch.driver.loop import KidState, run_case, simulate
-    from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.micro.solver import device_tables
-    from kid_tpu_torch.micro.state import ColumnState
     from kid_tpu_torch.tables.cache import get_tables
 
-    case = dataclasses.replace(MIXED1, nx=MAIN_NX)
     dtype = torch.float32
     n_spin, n_timed, n_window = 150, 50, 10
     t0 = time.perf_counter()
     st, _ = run_case(case, dtype, n_steps=n_spin, device=dev)
     torch.cuda.synchronize()
-    print(f"main path spin-up: {n_spin} steps in "
+    print(f"main path {case.name} spin-up: {n_spin} steps in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    tables = device_tables(get_tables(iiwarm=False), dtype, dev)
+    tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype, dev)
 
-    packed = []
-    pack = F.pack_inputs
+    last = {}
+    originals = {}
+    for mod, name in packers:
+        fn = getattr(mod, name)
+        originals[(mod, name)] = fn
 
-    def recording_pack(*args):           # keeps the last kernel input
-        x = pack(*args)
-        packed[:] = [x]
-        return x
+        def recording(*args, _fn=fn, _name=name):   # keeps the last input
+            x = _fn(*args)
+            last[_name] = x
+            return x
 
-    F.pack_inputs = recording_pack
+        setattr(mod, name, recording)
     window_ms, ppts = [], []
     final = st
-    F.fused_step.launches = 0
-    for w in range(n_timed // n_window):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        final, out = simulate(final, tables, case, n_window,
-                              istep0=n_spin + w * n_window, device=dev)
-        e1.record()
-        torch.cuda.synchronize()
-        window_ms.append(e0.elapsed_time(e1) / n_window)
-        ppts.append(out)
-    launches = F.fused_step.launches
-    F.pack_inputs = pack
+    reset_counts()
+    try:
+        for w in range(n_timed // n_window):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            final, out = simulate(final, tables, case, n_window,
+                                  istep0=n_spin + w * n_window, device=dev)
+            e1.record()
+            torch.cuda.synchronize()
+            window_ms.append(e0.elapsed_time(e1) / n_window)
+            ppts.append(out)
+    finally:
+        counts = read_counts()
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
     step_ms = float(np.median(window_ms))
-    if launches != n_timed:
-        raise AssertionError(f"{launches} kernel launches in {n_timed} steps")
+    for k, n in counts.items():
+        want = n_timed if k in path_kernels else 0
+        if n != want:
+            raise AssertionError(f"{case.name}: {n} {k} launches in "
+                                 f"{n_timed} steps, expected {want}")
     for f in KidState._fields:
         v = getattr(final, f)
         if not torch.isfinite(v).all():
@@ -248,42 +359,40 @@ def phase_main_path(dev, card):
                 raise AssertionError("main path: bad precip stream")
         rain += float(out.ppt_rain.sum())
     best_ms = min(window_ms)
-    print(f"main path mixed1 ({case.nx}, {case.nz}) f32, "
+    launches = ", ".join(f"{counts[k]} {k}" for k in path_kernels)
+    print(f"main path {case.name} ({case.nx}, {case.nz}) f32, "
           f"{len(window_ms)} windows of {n_window} steps: median "
           f"{step_ms:.3f} ms/step ({case.nx * 1e3 / step_ms:.0f} "
           f"column-steps/s), best {best_ms:.3f} ms/step "
           f"({case.nx * 1e3 / best_ms:.0f} column-steps/s), windows "
           f"{' '.join(f'{m:.3f}' for m in window_ms)} ms/step; "
-          f"{launches} launches in {n_timed} steps, "
+          f"launches in {n_timed} steps: {launches}; "
           f"qc max {float(final.qc.max()):.3e}, qs max "
-          f"{float(final.qs.max()):.3e}, rain in the timed steps "
+          f"{float(final.qs.max()):.3e}, nwfa min "
+          f"{float(final.nwfa.min()):.3e}, rain in the timed steps "
           f"{rain:.3e} [{card}]", flush=True)
-    profile_steps(dev, card, final, tables, case, n_spin + n_timed,
-                  step_ms)
+    profile_steps(dev, card, final, tables, case, n_spin + n_timed, step_ms,
+                  path_kernels)
+    return counts, last
 
-    # the kernel and its plain version on the main path's last input
-    x = packed[0]
-    cfg, dt_f = case.micro, case.dt
-    st_in = ColumnState(*x[:12])
-    tv = dict(zip(S.tv_keys(cfg), x[14:]))
-    y, ppt = F.launch_packed(x, cfg, dt_f, False)
-    ref = F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False)
-    torch.cuda.synchronize()
-    got = flat(F.unpack_outputs(y, ppt, False))
-    want = flat(ref)
+
+def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
+                  got_want):
+    """Time ``launch`` (the kernel) and ``plain`` (its plain version) on
+    the main path's input ``x``, bound the work, check the two agree under
+    the f32 knife-edge model; returns the kernels-line record."""
+    got, want = got_want()
     worst = equiv_report(got, want, 1e-3)
     max_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
-    ms = time_ms(lambda: F.launch_packed(x, cfg, dt_f, False), 50)
-    plain_ms = time_ms(
-        lambda: F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False),
-        5)
+    ms = time_ms(launch, 50)
+    plain_ms = time_ms(plain, 5)
     counter = OpCounter()
     with counter:
-        F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False)
-    n_bytes = (x.numel() + y.numel() + ppt.numel()) * x.element_size()
+        plain()
+    n_bytes = x.numel() * x.element_size() + n_out_bytes
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     ops_ms = counter.ops / PEAK_F32_OPS * 1e3
-    print(f"fused_step at the main path's input {tuple(x.shape[1:])} f32: "
+    print(f"{name} at the main path's input {tuple(x.shape[1:])} f32: "
           f"{ms:.4f} ms/launch, plain version {plain_ms:.3f} ms, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f} MB -> "
           f"{bytes_ms:.4f} ms, {counter.ops / 1e9:.2f} G elementwise ops "
@@ -291,19 +400,111 @@ def phase_main_path(dev, card):
           f"(limit 1e-3), max abs error {max_abs:.3e} [{card}]",
           flush=True)
     return dict(
-        name="fused_step", route="cuda",
-        source="kid_tpu_torch/micro/csrc/fused_step.cu",
-        replaces="kid_tpu/micro/pallas_step.py:353", launches=launches,
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        name=name, route="cuda",
+        source=f"kid_tpu_torch/micro/csrc/{name}.cu",
+        replaces=f"kid_tpu/micro/pallas_step.py:{REPLACES[name]}",
+        launches=launches, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None)
 
 
-def profile_steps(dev, card, st, tables, case, istep0, step_ms, n=5):
+# the def line of each TPU kernel in kid_tpu/micro/pallas_step.py
+REPLACES = {"fused_step": 353, "fused_rates": 202, "fused_post": 266}
+
+
+def phase_main_path(dev, card):
+    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.driver.cases import MIXED1
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.state import ColumnState
+
+    case = dataclasses.replace(MIXED1, nx=MAIN_NX)
+    counts, last = run_main_path(dev, card, case, ("fused_step",),
+                                 [(F, "pack_inputs")])
+
+    # the kernel and its plain version on the main path's last input
+    x = last["pack_inputs"]
+    cfg, dt_f = case.micro, case.dt
+    st_in = ColumnState(*x[:12])
+    tv = dict(zip(S.tv_keys(cfg), x[14:]))
+    ncol, nz = x.shape[1:]
+    out_bytes = (12 * ncol * nz + 4 * ncol) * x.element_size()
+
+    def got_want():
+        y, ppt = F.launch_packed(x, cfg, dt_f, False)
+        ref = F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False)
+        torch.cuda.synchronize()
+        return flat(F.unpack_outputs(y, ppt, False)), flat(ref)
+
+    return [kernel_record(
+        "fused_step", card, x, lambda: F.launch_packed(x, cfg, dt_f, False),
+        lambda: F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False),
+        out_bytes, counts["fused_step"], got_want)]
+
+
+def phase_aerosol_main_path(dev, card):
+    import kid_tpu_torch.micro.split_step as A
+    from kid_tpu_torch.driver.cases import AEROSOL1D
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.state import ColumnState
+
+    case = dataclasses.replace(AEROSOL1D, nx=MAIN_NX)
+    counts, last = run_main_path(
+        dev, card, case, ("fused_rates", "fused_post"),
+        [(A, "pack_rates_inputs"), (A, "pack_post_inputs")])
+    cfg, dt_f = case.micro, case.dt
+    records = []
+
+    # kernel A on its last input
+    xa = last["pack_rates_inputs"]
+    ncol, nz = xa.shape[1:]
+    st_a = ColumnState(*xa[:12])
+    tv = dict(zip(S.tv_keys(cfg), xa[13:]))
+
+    def want_a():
+        got = A.unpack_rates_outputs(
+            A.launch_rates_packed(xa, cfg, dt_f, False), False)
+        ref = A.fused_rates_ref(st_a, xa[12], tv, cfg, dt_f, False)
+        torch.cuda.synchronize()
+        return got, ref
+
+    records.append(kernel_record(
+        "fused_rates", card, xa,
+        lambda: A.launch_rates_packed(xa, cfg, dt_f, False),
+        lambda: A.fused_rates_ref(st_a, xa[12], tv, cfg, dt_f, False),
+        len(S.P8_OUT) * ncol * nz * xa.element_size(),
+        counts["fused_rates"], want_a))
+
+    # kernel B on its last input
+    xb = last["pack_post_inputs"]
+    st_b = ColumnState(*xb[:12])
+    p8 = dict(zip(S.P8_OUT, xb[14:14 + len(S.P8_OUT)]))
+    aux = dict(zip(A.AUX_KEYS, xb[14 + len(S.P8_OUT):]))
+
+    def want_b():
+        y, ppt = A.launch_post_packed(xb, cfg, dt_f, False)
+        ref = A.fused_post_ref(st_b, xb[12], xb[13], p8, aux, cfg, dt_f,
+                               False)
+        torch.cuda.synchronize()
+        return flat(A.unpack_post_outputs(y, ppt, p8, False)), flat(ref)
+
+    records.append(kernel_record(
+        "fused_post", card, xb,
+        lambda: A.launch_post_packed(xb, cfg, dt_f, False),
+        lambda: A.fused_post_ref(st_b, xb[12], xb[13], p8, aux, cfg, dt_f,
+                                 False),
+        (12 * ncol * nz + 4 * ncol) * xb.element_size(),
+        counts["fused_post"], want_b))
+    return records
+
+
+def profile_steps(dev, card, st, tables, case, istep0, step_ms,
+                  path_kernels, n=5):
     """Where a main-path step's device time goes: ``torch.profiler`` over
     ``n`` steps, self device time by kernel, the number of kernels a step
-    launches, and the device's busy share of the unprofiled step time."""
+    launches, the device's busy share of the unprofiled step time and
+    each hand-written kernel's share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from kid_tpu_torch.driver.loop import simulate
@@ -320,13 +521,16 @@ def profile_steps(dev, card, st, tables, case, istep0, step_ms, n=5):
         print("profile: the profiler recorded no device time (not "
               "measured)", flush=True)
         return
-    kernels = sum(r[2] for r in rows)
-    fused = sum(r[1] for r in rows if "fused_step_kernel" in r[0])
-    print(f"profile of {n} main-path steps: device time {total:.3f} "
-          f"ms/step in {kernels:.0f} kernels/step, busy share "
+    n_kernels = sum(r[2] for r in rows)
+    shares = []
+    for name in path_kernels:
+        t = sum(r[1] for r in rows if f"{name}_kernel" in r[0])
+        shares.append(f"{name} {t:.3f} ms/step ({t / total:.3f} of device "
+                      f"time)")
+    print(f"profile of {n} {case.name} steps: device time {total:.3f} "
+          f"ms/step in {n_kernels:.0f} kernels/step, busy share "
           f"{total / step_ms:.3f} of the unprofiled {step_ms:.3f} ms/step; "
-          f"fused_step {fused:.3f} ms/step ({fused / total:.3f} of device "
-          f"time) [{card}]", flush=True)
+          f"{'; '.join(shares)} [{card}]", flush=True)
     for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:8.4f} ms/step {cnt:6.1f}x  {key[:90]}", flush=True)
 
@@ -357,26 +561,37 @@ def seeded_state(case, dev, seed=0):
 
 def phase_end_to_end(dev):
     import kid_tpu_torch.micro.fused_step as F
+    import kid_tpu_torch.micro.split_step as A
     from kid_tpu_torch.driver.cases import CASES
     from kid_tpu_torch.driver.loop import simulate
     from kid_tpu_torch.micro.solver import device_tables
     from kid_tpu_torch.tables.cache import get_tables
-    for name in ("mixed1", "warm1_recon"):
+    for name in ("mixed1", "warm1_recon", "aerosol1d"):
         case = dataclasses.replace(CASES[name], nx=E2E_NX)
         tables = device_tables(get_tables(iiwarm=case.micro.iiwarm),
                                torch.float64, dev)
         st0 = seeded_state(case, dev)
-        n0 = F.fused_step.launches
+        # the kernels of this case's path, and their plain versions
+        if case.micro.is_aerosol_aware:
+            swaps = [(A, "fused_rates", A.fused_rates_ref),
+                     (A, "fused_post", A.fused_post_ref)]
+        else:
+            swaps = [(F, "fused_step", F.fused_step_ref)]
+        n0 = read_counts()
         k_st, k_out = simulate(st0, tables, case, 20, istep0=150, device=dev)
-        if F.fused_step.launches - n0 != 20:
-            raise AssertionError("kernel path did not launch the kernel")
-        kernel = F.fused_step
-        F.fused_step = F.fused_step_ref      # the plain path, on the card
+        n1 = read_counts()
+        for _, k, _ in swaps:
+            if n1[k] - n0[k] != 20:
+                raise AssertionError(f"kernel path did not launch {k}")
+        kept = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
+        for mod, k, ref in swaps:            # the plain path, on the card
+            setattr(mod, k, ref)
         try:
             p_st, p_out = simulate(st0, tables, case, 20, istep0=150,
                                    device=dev)
         finally:
-            F.fused_step = kernel
+            for mod, k, fn in kept:
+                setattr(mod, k, fn)
         torch.cuda.synchronize()
         worst = equiv_report(k_st._asdict(), p_st._asdict(), 1e-8)
         for k in ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice"):
@@ -385,9 +600,8 @@ def phase_end_to_end(dev):
             np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-20,
                                        err_msg=f"{name} {k}")
         print(f"end to end {name} ({case.nx} columns, 20 steps, f64): kernel "
-              f"path "
-              f"vs plain path worst normalised error {worst:.3e} (limit "
-              f"1e-8), precip streams within rtol 1e-8, rain "
+              f"path vs plain path worst normalised error {worst:.3e} "
+              f"(limit 1e-8), precip streams within rtol 1e-8, rain "
               f"{float(k_out.ppt_rain.sum()):.4e}", flush=True)
 
 
@@ -395,19 +609,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.micro import cuda_build
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
-    print(f"fused_step build: {F.build():.1f} s", flush=True)
+    print(f"kernel build (fused_step, fused_rates, fused_post, in "
+          f"parallel): {cuda_build.build():.1f} s", flush=True)
     phase_kernel_vs_plain(dev)
-    record = phase_main_path(dev, card)
+    phase_split_vs_plain(dev)
+    records = phase_main_path(dev, card)
+    records += phase_aerosol_main_path(dev, card)
     phase_end_to_end(dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """KiD time loop: prescribed-flow advection -> microphysics -> update
-(twin of ``kid_tpu/driver/loop.py`` for the 1-D non-aerosol cases).
+(twin of ``kid_tpu/driver/loop.py`` for the 1-D cases).
 
 The adapter contract of mphys_thompson09n.f90:28-310 is kept:
 
@@ -29,10 +29,8 @@ from ..tables.cache import get_tables
 from .advection import advective_tendency_z, divergence_tendency_z
 from .cases import Case
 
-# Where the cases this slice does not run will come from.
+# Where the cases the port does not run yet will come from.
 _TODO_2D = "2-D cases are not ported yet (ROADMAP.md, Queue 1 item 6)"
-_TODO_AEROSOL = ("aerosol-aware cases are not ported yet (ROADMAP.md, "
-                 "Queue 1 item 5)")
 
 
 class KidState(NamedTuple):
@@ -148,6 +146,8 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
 
     dz = prof(grid.dz)
     rho0 = prof(grid.rho0)
+    rho_face = torch.cat([rho0[:1], 0.5 * (rho0[1:] + rho0[:-1]),
+                          rho0[-1:]])
     exner = prof(grid.exner)[None, :]
     dzq2 = torch.broadcast_to(dz, pres2.shape)
     dt = case.dt
@@ -164,6 +164,10 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
         ten = (advective_tendency_z(q, w_face, rho0, dz)
                + divergence_tendency_z(q, w_face, rho0, dz))
         prov = q + ten * dt
+        w_cent = None                  # cell-centred w, for activation
+        if cfg.is_aerosol_aware:
+            w_vel = w_face / rho_face
+            w_cent = 0.5 * (w_vel[:, 1:] + w_vel[:, :-1])
         prov_named = dict(st._asdict())
         prov_named.update(zip(adv_fields, prov))
         micro_in = ColumnState(
@@ -173,7 +177,7 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
             nr=prov_named["nr"], nc=prov_named["nc"],
             nwfa=prov_named["nwfa"], nifa=prov_named["nifa"])
         out, ppt, diag = batched_microphysics(
-            micro_in, pres2, None, dzq2, dt, tables, cfg,
+            micro_in, pres2, w_cent, dzq2, dt, tables, cfg,
             want_rates=want_rates, device=dev)
         new = KidState(
             theta=out.t / exner, qv=out.qv, qc=out.qc, qr=out.qr,
@@ -197,15 +201,13 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
 
 def simulate(state0: KidState, tables, case: Case, n_steps: int,
              profile_diags=False, istep0: int = 0, device="cuda"):
-    """Run ``n_steps`` of a 1-D non-aerosol case from ``state0``; returns
+    """Run ``n_steps`` of a 1-D case from ``state0``; returns
     (final KidState, StepOutputs).  ``istep0`` is the number of steps
     already taken, so a run can be chunked over several calls.  Every
     tensor must lie on ``device``; raises without a GPU unless
     ``device="cpu"``."""
     if not case.is_1d:
         raise NotImplementedError(_TODO_2D)
-    if case.micro.is_aerosol_aware:
-        raise NotImplementedError(_TODO_AEROSOL)
     dev = resolve_device(device)
     for t in state0:
         check_on(t, dev)

@@ -1,0 +1,95 @@
+// Phases 2-11 of the aerosol-aware microphysics step (the first kernel of
+// the aerosol split) as one CUDA kernel for Hopper (sm_90a).
+//
+// Replaces kid_tpu/micro/pallas_step.py::fused_rates (the Pallas TPU kernel
+// whose body is kid_tpu/micro/solver.py::rates_from_tables).  Its plain
+// PyTorch version is kid_tpu_torch/micro/solver.py::rates_from_tables
+// (split_step.fused_rates_ref); the stages of thompson.cuh transcribe it.
+//
+// Boundary: the prologue is re-derived from the raw state, so 13 + ntv
+// channels go in (12 state + pres + 18 table-stage channels for mixed
+// phase, 1 warm) and the 15 p8 tendency channels (+33 rate profiles) come
+// out; torch's aerosol lookup stage and fused_post.cu read them.
+//
+// Mapping: one thread block per column, one thread per level.  The only
+// vertical coupling is the prologue's graupel-N0 suffix minimum.
+//
+// Bound at (ncol, nz) = (8192, 120) f32 without rates: 31 input + 15 output
+// channels of 3.93 MB is ~181 MB, >= ~54 us at 3.35 TB/s; the arithmetic
+// (chip_smoke.py counts the plain version's operations) is below that at
+// the 67 TFLOP/s f32 rate, so bytes bound it.  No fast math (-fmad=false
+// keeps the rounding of the plain version).
+
+#include "thompson.cuh"
+
+namespace {
+
+template <typename T, bool WARM, bool RATES>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_rates_kernel(const T* __restrict__ x, T* __restrict__ y, int ncol,
+                       int nz, double nt_c, double dt, double ifdry,
+                       int dusty, int homog) {
+  __shared__ Shared<T> sh;
+  const int col = blockIdx.x;
+  const bool valid = (int)threadIdx.x < nz;
+  const int kl = valid ? threadIdx.x : nz - 1;  // padding mirrors the top
+  const size_t plane = (size_t)ncol * nz;
+  const size_t off = (size_t)col * nz + kl;
+  const Params<T> P = make_params<T>(dt, nt_c, ifdry, 1, dusty, homog);
+
+  // input channels: ColumnState, pres, tv_keys(cfg)
+  const Cell<T> s = load_cell(x, plane, off);
+  Pro<T> p;
+  prologue<T, WARM, true>(s, P, valid, sh, p);
+  P8<T> q;
+  T* d = RATES ? y + N_P8 * plane + off : nullptr;
+  rates<T, WARM, RATES, true>(p, x + (I_pres + 1) * plane + off, plane, P,
+                              valid, q, d);
+  if (valid) {
+    T* o = y + off;
+    o[P_tten * plane] = q.tten; o[P_qvten * plane] = q.qvten;
+    o[P_qcten * plane] = q.qcten; o[P_ncten * plane] = q.ncten;
+    o[P_qiten * plane] = q.qiten; o[P_niten * plane] = q.niten;
+    o[P_qrten * plane] = q.qrten; o[P_nrten * plane] = q.nrten;
+    o[P_qsten * plane] = q.qsten; o[P_qgten * plane] = q.qgten;
+    o[P_nwfaten * plane] = q.nwfaten; o[P_nifaten * plane] = q.nifaten;
+    o[P_vts_boost * plane] = q.vts_boost; o[P_mvd_r * plane] = q.mvd_r;
+    o[P_prr_gml * plane] = q.prr_gml;
+  }
+}
+
+template <typename T>
+int launch(const T* x, T* y, int ncol, int nz, int iiwarm, int want_rates,
+           double nt_c, double dt, double ifdry, int dusty, int homog,
+           void* stream) {
+  auto go = [&](auto kernel) {
+    return launch_columns(kernel, ncol, nz, stream, x, y, ncol, nz, nt_c, dt,
+                          ifdry, dusty, homog);
+  };
+  if (iiwarm)
+    return want_rates ? go(fused_rates_kernel<T, true, true>)
+                      : go(fused_rates_kernel<T, true, false>);
+  return want_rates ? go(fused_rates_kernel<T, false, true>)
+                    : go(fused_rates_kernel<T, false, false>);
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes by kid_tpu_torch/micro/split_step.py.
+// x: (13 + ntv, ncol, nz), y: (15 [+33], ncol, nz), both contiguous on the
+// card.  Returns the cudaError_t of the launch.
+extern "C" int kid_fused_rates_f32(const float* x, float* y, int ncol, int nz,
+                                   int iiwarm, int want_rates, double nt_c,
+                                   double dt, double ifdry, int dusty,
+                                   int homog, void* stream) {
+  return launch<float>(x, y, ncol, nz, iiwarm, want_rates, nt_c, dt, ifdry,
+                       dusty, homog, stream);
+}
+
+extern "C" int kid_fused_rates_f64(const double* x, double* y, int ncol,
+                                   int nz, int iiwarm, int want_rates,
+                                   double nt_c, double dt, double ifdry,
+                                   int dusty, int homog, void* stream) {
+  return launch<double>(x, y, ncol, nz, iiwarm, want_rates, nt_c, dt, ifdry,
+                        dusty, homog, stream);
+}

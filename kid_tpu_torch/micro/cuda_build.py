@@ -1,0 +1,215 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is one kernel library with a plain C interface.
+At first use all of them are compiled with ``nvcc``, one process per file,
+all started together, into ``build/kid_tpu_torch/<key>/`` at the
+repository root, and loaded with ``ctypes``.  The key hashes every file
+under ``csrc/``, the constants header that ``constants_header`` generates
+from ``kid_tpu_torch/constants.py`` (one source of truth for the physical
+constants) and the compiler flags, so an edit anywhere rebuilds.  A failed
+build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import constants as c
+from ..special import _RSIF_C, _RSLF_C
+from . import solver as S
+
+SRC_DIR = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kid_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+MAX_NZ = 256          # one thread per level: the kernels' largest block
+
+# the moment orders of the snow Field regression, as solver._prologue
+# and solver._post_rates pass them
+_FIELD_ORDERS = (("FM0", 0.0), ("FM1", 1.0), ("FMC", float(c.CSE[1])),
+                 ("FME", float(c.CSE[13])), ("FMF", float(c.CSE[16])))
+
+
+def _lit(v) -> str:
+    """Exact C++ double literal."""
+    v = float(v)
+    if math.isinf(v) or math.isnan(v):
+        raise ValueError(v)
+    return float.hex(v)
+
+
+def constants_header() -> str:
+    """The kernels' constants: every scalar of ``constants.py``, the
+    elements of its short 1-D arrays as ``NAME_i``, and the few values the
+    solver derives in Python (each computed here exactly as the solver's
+    Python computes it)."""
+    lines = ["// generated by kid_tpu_torch/micro/cuda_build.py; do not edit",
+             "#pragma once", f"constexpr int MAX_NZ = {MAX_NZ};"]
+    for name in sorted(dir(c)):
+        if not name.isupper() or name.startswith("_"):
+            continue
+        v = getattr(c, name)
+        if isinstance(v, bool):
+            continue
+        if isinstance(v, (int, float, np.floating, np.integer)):
+            lines.append(f"constexpr double {name} = {_lit(v)};")
+        elif (isinstance(v, np.ndarray) and v.ndim == 1 and v.size <= 64
+              and np.issubdtype(v.dtype, np.floating)):
+            for i, e in enumerate(v):
+                lines.append(f"constexpr double {name}_{i} = {_lit(e)};")
+    derived = {
+        "RR1": c.R_R_AXIS[0], "RS1": c.R_S_AXIS[0], "RG1": c.R_G_AXIS[0],
+        "LAMG_FAC": (S.CGG[3] * c.OGG2 * c.OGG1) ** c.OBMG,
+        "D0R_CUBED": c.D0R ** 3,
+        "LN10_PY": 2.302585092994046,
+        "INV_LN10_PY": 0.4342944819032518,
+        "INV_LN10_SNOW": 1.0 / math.log(10.0),
+    }
+    # powc(CIE[2] / D, BM_I) on a Python float: binary squaring
+    for tag, d in (("25", 25.0e-6), ("5", 5.0e-6), ("300", 300.0e-6)):
+        x = S.CIE[2] / d
+        derived[f"P_ICE_{tag}"] = x * (x * x)
+    for tag, m in _FIELD_ORDERS:
+        derived[f"{tag}_M"] = m
+        derived[f"{tag}_M3"] = m ** 3
+    for i, v in enumerate(_RSLF_C):
+        derived[f"RSLF_C_{i}"] = v
+    for i, v in enumerate(_RSIF_C):
+        derived[f"RSIF_C_{i}"] = v
+    for k, v in derived.items():
+        lines.append(f"constexpr double {k} = {_lit(v)};")
+    rows = ",\n  ".join("{" + ", ".join(_lit(v) for v in r) + "}"
+                        for r in S.NUC_COEF)
+    lines.append(f"__device__ const double NUC_COEF[{len(S.NUC_COEF)}][6] "
+                 f"= {{\n  {rows}}};")
+    return "\n".join(lines) + "\n"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels of kid_tpu_torch/micro/csrc")
+
+
+def build_key(header: str) -> str:
+    """Hash of every file under ``csrc/``, the header and the flags."""
+    h = hashlib.sha256()
+    for path in sorted(SRC_DIR.rglob("*")):
+        if path.is_file():
+            h.update(path.relative_to(SRC_DIR).as_posix().encode() + b"\0")
+            h.update(path.read_bytes() + b"\0")
+    h.update(header.encode() + b"\0" + " ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+class _Libraries:
+    """The compiled kernel libraries, built once per process."""
+
+    def __init__(self):
+        self._libs = None
+        self.build_seconds = None
+
+    def get(self, stem: str) -> ctypes.CDLL:
+        """The loaded library of ``csrc/<stem>.cu``."""
+        if self._libs is None:
+            self._libs = {k: ctypes.CDLL(str(v))
+                          for k, v in self._build().items()}
+        return self._libs[stem]
+
+    def _build(self) -> dict:
+        header = constants_header()
+        out_dir = BUILD_DIR / build_key(header)
+        sources = sorted(SRC_DIR.glob("*.cu"))
+        sos = {src.stem: out_dir / f"lib{src.stem}.so" for src in sources}
+        if all(so.exists() for so in sos.values()):
+            self.build_seconds = 0.0
+            return sos
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "kid_constants.h").write_text(header)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            procs = {}
+            for src in sources:
+                tmp_so = Path(tmp) / sos[src.stem].name
+                cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I",
+                       str(SRC_DIR), "-o", str(tmp_so), str(src)]
+                procs[src.stem] = (tmp_so, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            errors = []
+            for stem, (tmp_so, proc) in procs.items():
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed on {stem}.cu:\n{log}")
+            if errors:
+                raise RuntimeError("\n".join(errors))
+            for stem, (tmp_so, _) in procs.items():
+                os.replace(tmp_so, sos[stem])
+        self.build_seconds = time.perf_counter() - t0
+        return sos
+
+
+LIBRARIES = _Libraries()
+
+
+def same_device(name: str, *tensors) -> torch.device:
+    """The device of ``tensors``; raises unless they share it and a
+    dtype."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} inputs must share one device and "
+                             "dtype")
+    return dev
+
+
+def check_packed(x, n_in: int, name: str):
+    """Raise unless ``x`` is a kernel's packed input: a contiguous
+    (n_in, ncol, nz) float32 or float64 CUDA tensor with 2 <= nz <=
+    MAX_NZ.  Returns (ncol, nz)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"launch_packed needs a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, not {x.dtype}")
+    if x.dim() != 3 or x.shape[0] != n_in:
+        raise ValueError(f"packed input must be ({n_in}, ncol, nz), "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("packed input must be contiguous")
+    _, ncol, nz = x.shape
+    if not 2 <= nz <= MAX_NZ or ncol < 1:
+        raise ValueError(f"{name} takes 2 <= nz <= {MAX_NZ} and ncol >= 1, "
+                         f"got ({ncol}, {nz})")
+    return ncol, nz
+
+
+def kernel_function(stem: str, dtype, argtypes) -> ctypes._CFuncPtr:
+    """C function ``kid_<stem>_f32`` or ``kid_<stem>_f64`` of
+    ``csrc/<stem>.cu`` with its argument types set (pointers and the
+    stream as ``c_void_p``); it returns the launch's cudaError_t."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(LIBRARIES.get(stem), f"kid_{stem}_{suffix}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build() -> float:
+    """Build (or load) every kernel library; returns the build seconds."""
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        LIBRARIES.get(src.stem)
+    return LIBRARIES.build_seconds

@@ -1,5 +1,5 @@
 """Thompson09 column microphysics in PyTorch (twin of
-``kid_tpu/micro/solver.py``, non-aerosol path).
+``kid_tpu/micro/solver.py``).
 
 The physics of ``mp_thompson`` (module_mp_thompson09n.f90:1156-3688) as
 branch-free tensor code over a batch of (ncol, nz) columns:
@@ -11,12 +11,18 @@ branch-free tensor code over a batch of (ncol, nz) columns:
   * ``core_from_tables``: phases 2-20 from the raw state and the
     table-stage channels.  This is the plain version of the hand-written
     CUDA kernel (``fused_step.fused_step``), which computes the same
-    function on the card.
+    function on the card;
+  * aerosol-aware configurations split the step in two around the
+    phase-14 table lookups: ``rates_from_tables`` (phases 2-11, plain
+    version of ``split_step.fused_rates``), ``aerosol_lookup_stage``
+    (torch ops) and ``post_from_p8`` (phases 12-20, plain version of
+    ``split_step.fused_post``).
 
-``batched_microphysics`` runs the table stage in torch ops and then
-``fused_step``, which launches the kernel for a CUDA tensor and runs
-``core_from_tables`` for a CPU tensor.  Phase numbers follow SURVEY.md
-section 3.2b.
+``batched_microphysics`` runs the table stage in torch ops and then the
+kernel path: ``fused_step``, or ``fused_rates`` -> lookups -> ``fused_post``
+for aerosol-aware configurations.  Each wrapper launches its kernel for a
+CUDA tensor and runs its plain version for a CPU tensor.  Phase numbers
+follow SURVEY.md section 3.2b.
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from ..config import MicroConfig
 from ..device import check_on, resolve_device
 from ..special import rsif, rslf
 from ..tables.builders import Tables
-from ..tables.index import decade_index, fnint, log_bin_index, trunc_int
+from ..tables.index import (decade_index, fnint, log_bin_index, tnc_index,
+                           trunc_int)
+from .aerosol import activ_ncloud, eff_aero, ice_demott, ice_koop
 from .fastmath import exp10, ipow, log10, powc
 from .state import ColumnState, Precip
 
@@ -67,11 +75,6 @@ _QRFZ = ("tpg_qrfz", "tpi_qrfz", "tni_qrfz", "tnr_qrfz")
 _QCFZ = ("tpi_qcfz", "tni_qcfz")          # index (idx_c, idx_tc)
 _IAUS = ("tpi_ide", "tps_iaus", "tni_iaus")   # index (idx_i, idx_i1)
 
-# Where the aerosol-aware path will come from.
-_AEROSOL_TODO = ("aerosol-aware configurations are not ported yet "
-                 "(ROADMAP.md, Queue 1 item 5)")
-
-
 class DeviceTables(NamedTuple):
     """Device-resident lookup tables, laid out for one gather per family
     (contents as the Fortran tables of f90:322-342)."""
@@ -83,6 +86,9 @@ class DeviceTables(NamedTuple):
     iaus: torch.Tensor    # (3, ntb_i*ntb_i1), order _IAUS
     t_efrw: torch.Tensor  # (nbr, nbc)
     t_efsw: torch.Tensor  # (nbs, nbc)
+    tnc_wev: torch.Tensor  # (nbc, ntb_c, nbc)
+    tnccn_act: torch.Tensor  # (7, 9, 7, 5, 4) CCN activation fraction
+    tnccn_corners: torch.Tensor  # (7*9*7, 4), see _tnccn_corners
 
 
 def device_tables(tables: Tables, dtype=torch.float32,
@@ -112,7 +118,27 @@ def device_tables(tables: Tables, dtype=torch.float32,
         racs=stack_rows(_RACS), racg=stack_rows(_RACG),
         qrfz=stack_rows(_QRFZ), qcfz=stack(_QCFZ), iaus=stack(_IAUS),
         t_efrw=put(np.asarray(tables.t_efrw, np_dtype)),
-        t_efsw=put(np.asarray(tables.t_efsw, np_dtype)))
+        t_efsw=put(np.asarray(tables.t_efsw, np_dtype)),
+        tnc_wev=put(np.asarray(tables.tnc_wev, np_dtype)),
+        tnccn_act=put(np.asarray(tables.tnccn_act, np_dtype)),
+        tnccn_corners=put(_tnccn_corners(
+            np.asarray(tables.tnccn_act, np.float64)).astype(np_dtype)))
+
+
+def _tnccn_corners(act: np.ndarray) -> np.ndarray:
+    """(ni*nj*nk, 4) corner rows [a, b, cc, dd] of the activation table's
+    (l=2, m=1) plane (f90:4502-4503), indexed by the clipped (i, j, k) of
+    ``aerosol.activ_ncloud``: a=act[i-1,j-1,k], b=act[i,j-1,k],
+    cc=act[i,j,k], dd=act[i-1,j,k].  Rows with i==0 or j==0 are never
+    fetched (activ_ncloud clips both to >= 1); zeros there."""
+    plane = act[:, :, :, 2, 1]                  # (ni, nj, nk)
+    ni, nj, nk = plane.shape
+    out = np.zeros((ni, nj, nk, 4))
+    out[1:, 1:, :, 0] = plane[:-1, :-1, :]      # a
+    out[1:, 1:, :, 1] = plane[1:, :-1, :]       # b
+    out[1:, 1:, :, 2] = plane[1:, 1:, :]        # cc
+    out[1:, 1:, :, 3] = plane[:-1, 1:, :]       # dd
+    return out.reshape(ni * nj * nk, 4)
 
 
 # nu_c-indexed gamma-coefficient columns [ccg1, ccg2, ccg3, ocg1, ocg2,
@@ -339,6 +365,9 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
         prg_rcg = prr_rcg = pnr_rcg = z
         prg_rfz = pri_rfz = pni_rfz = pnr_rfz = z
         pri_wfz = pni_wfz = prs_iau = pni_iau = z
+    aero = cfg.is_aerosol_aware
+    if aero:
+        nwfa = pro["nwfa"]; nifa = pro["nifa"]
 
     # ---- phase 8: warm-rain process rates (f90:1676-1742) -----------------
     ef_rr = 1.0 - torch.exp(torch.clamp(2300.0 * (mvd_r - 1950.0e-6),
@@ -368,9 +397,24 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
     pnc_rcw = torch.where(rcw, torch.minimum(
         nc * odts, rhof * c.T1_QR_QC * ef_rw * nc * n0_r * geo_r), 0.0)
 
+    # rain collecting aerosols, wet scavenging (f90:1728-1740)
+    pna_rca = z; pnd_rcd = z; pna_sca = z; pnd_scd = z
+    pna_gca = z; pnd_gcd = z
+    if aero:
+        rca_on = l_qr & (mvd_r > c.D0R)
+        ef_ra = eff_aero(mvd_r, 0.04e-6, visco, rho, temp, "r")
+        pna_rca = torch.where(rca_on, torch.minimum(
+            nwfa * odts, rhof * c.T1_QR_QC * ef_ra * nwfa * n0_r * geo_r),
+            0.0)
+        ef_rd = eff_aero(mvd_r, 0.8e-6, visco, rho, temp, "r")
+        pnd_rcd = torch.where(rca_on, torch.minimum(
+            nifa * odts, rhof * c.T1_QR_QC * ef_rd * nifa * n0_r * geo_r),
+            0.0)
+
     # ---- phase 9: ice-phase process rates (f90:1749-2286) -----------------
     pnc_scw = z; pnc_gcw = z
     pri_inu = z; pni_inu = z; pri_ihm = z; pni_ihm = z
+    pri_iha = z; pni_iha = z
     pri_ide = z; pni_ide = z; prs_ide = z
     pri_rci = z; pni_rci = z; prr_rci = z; pnr_rci = z; prg_rci = z
     pni_sci = z; prs_sci = z
@@ -415,20 +459,56 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
         pnc_gcw = torch.where(gcw, torch.minimum(
             nc * odts, rhof * c.T1_QG_QC * ef_gw * nc * n0_g * geo_g), 0.0)
 
+        # snow/graupel collecting aerosols, wet scavenging (f90:1937-1959)
+        if aero:
+            sca_on = rs > _RS1
+            xds_s = pro["smoc"] / torch.clamp(pro["smob"], min=1e-30)
+            ef_sa = eff_aero(xds_s, 0.04e-6, visco, rho, temp, "s")
+            pna_sca = torch.where(sca_on, torch.minimum(
+                nwfa * odts, rhof * c.T1_QS_QC * ef_sa * nwfa * smoe), 0.0)
+            ef_sd = eff_aero(xds_s, 0.8e-6, visco, rho, temp, "s")
+            pnd_scd = torch.where(sca_on, torch.minimum(
+                nifa * odts, rhof * c.T1_QS_QC * ef_sd * nifa * smoe), 0.0)
+            gca_on = rg > _RG1
+            ef_ga = eff_aero(xdg, 0.04e-6, visco, rho, temp, "g")
+            pna_gca = torch.where(gca_on, torch.minimum(
+                nwfa * odts,
+                rhof * c.T1_QG_QC * ef_ga * nwfa * n0_g * geo_g), 0.0)
+            ef_gd = eff_aero(xdg, 0.8e-6, visco, rho, temp, "g")
+            pnd_gcd = torch.where(gca_on, torch.minimum(
+                nifa * odts,
+                rhof * c.T1_QG_QC * ef_gd * nifa * n0_g * geo_g), 0.0)
+
         # ---------- processes only below 0C (f90:2025-2231) ----------------
         rate_max_i = (qv - qvsi) * rho * odts * 0.999   # f90:2028
 
-        # deposition-condensation nucleation, Cooper curve (f90:2088-2101)
+        # deposition-condensation ice nucleation: DeMott (2010) when dusty
+        # and aerosol-aware, else the Cooper curve (f90:2088-2101)
         inu = t_lt_0 & ((ssati >= 0.25) | ((ssatw > c.EPS)
                                            & (temp < 253.15)))
-        xnc_inu = torch.clamp(c.TNO * torch.exp(c.ATO * (c.T_0 - temp)),
-                              max=250.0e3)
+        if aero and cfg.dusty_ice:
+            xnc_inu = ice_demott(tempc, qv, pro["qvs"], qvsi, rho, nifa)
+        else:
+            xnc_inu = torch.clamp(c.TNO * torch.exp(c.ATO * (c.T_0 - temp)),
+                                  max=250.0e3)
         xni_now = ni + (pni_rfz + pni_wfz) * dt
         pni_inu0 = 0.5 * (xnc_inu - xni_now
                           + torch.abs(xnc_inu - xni_now)) * odts
         pri_inu = torch.where(inu, torch.minimum(rate_max_i,
                                                  c.XM0I * pni_inu0), 0.0)
         pni_inu = torch.where(inu, pri_inu / c.XM0I, 0.0)
+
+        # Koop (2001) homogeneous freezing of deliquesced aerosols
+        # (f90:2103-2111)
+        if aero and cfg.homog_ice:
+            xni_koop = smo0 + ni + (pni_rfz + pni_wfz + pni_inu) * dt
+            iha_on = (t_lt_0 & (xni_koop <= 500.0e3) & (temp < 238.0)
+                      & (ssati >= 0.4))
+            xnc_iha = ice_koop(temp, qv, pro["qvs"], nwfa, dt)
+            pni_iha0 = xnc_iha * odts
+            pri_iha = torch.where(iha_on, torch.minimum(
+                rate_max_i, c.XM0I * 0.1 * pni_iha0), 0.0)
+            pni_iha = torch.where(iha_on, pri_iha / (c.XM0I * 0.1), 0.0)
 
         # cloud-ice deposition/sublimation (f90:2115-2133)
         ilami = pro["ilami"]
@@ -552,13 +632,15 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
         return rate_max / torch.where(bad, sump, 1.0)
 
     # vapor deposition group
-    sump = pri_inu + pri_ide + prs_ide + prs_sde + prg_gde
+    # (pri_iha is zero unless aerosol-aware: adding it changes no bit)
+    sump = pri_inu + pri_ide + prs_ide + prs_sde + prg_gde + pri_iha
     rate_max = (qv - qvsi) * odts * 0.999
     bad = (((sump > c.EPS) & (sump > rate_max))
            | ((sump < -c.EPS) & (sump < rate_max)))
     ratio = _ratio(rate_max, bad, sump)
-    (pri_inu, pri_ide, pni_ide, prs_ide, prs_sde, prg_gde) = _scale(
-        bad, ratio, pri_inu, pri_ide, pni_ide, prs_ide, prs_sde, prg_gde)
+    (pri_inu, pri_ide, pni_ide, prs_ide, prs_sde, prg_gde,
+     pri_iha) = _scale(bad, ratio, pri_inu, pri_ide, pni_ide, prs_ide,
+                       prs_sde, prg_gde, pri_iha)
 
     # cloud water
     sump = -prr_wau - pri_wfz - prr_rcw - prs_scw - prg_scw - prg_gcw
@@ -614,7 +696,8 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
     orho = 1.0 / rho
     lfus2 = c.LSUB - lvap
 
-    qvten = (-pri_inu - pri_ide - prs_ide - prs_sde - prg_gde) * orho
+    qvten = (-pri_inu - pri_iha - pri_ide - prs_ide - prs_sde
+             - prg_gde) * orho
     qcten = (-prr_wau - pri_wfz - prr_rcw - prs_scw - prg_scw
              - prg_gcw) * orho
     ncten = (-pnc_wau - pnc_rcw - pni_wfz - pnc_scw - pnc_gcw) * orho
@@ -641,9 +724,9 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
     ncten = torch.where(xnc > c.NT_C_MAX,
                         (c.NT_C_MAX - nc1d * rho) * odts * orho, ncten)
 
-    qiten = (pri_inu + pri_ihm + pri_wfz + pri_rfz + pri_ide
+    qiten = (pri_inu + pri_iha + pri_ihm + pri_wfz + pri_rfz + pri_ide
              - prs_iau - prs_sci - pri_rci) * orho
-    niten = (pni_inu + pni_ihm + pni_wfz + pni_rfz + pni_ide
+    niten = (pni_inu + pni_iha + pni_ihm + pni_wfz + pni_rfz + pni_ide
              - pni_iau - pni_sci - pni_rci) * orho
 
     # ice mass/number balance (f90:2464-2484)
@@ -696,7 +779,7 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
     # temperature tendency split by T (f90:2550-2567)
     ifdry = float(1 - cfg.ifdry)
     tten_cold = (c.LSUB * ocp * (pri_inu + pri_ide + prs_ide + prs_sde
-                                 + prg_gde)
+                                 + prg_gde + pri_iha)
                  + lfus2 * ocp * (pri_wfz + pri_rfz + prg_rfz + prs_scw
                                   + prg_scw + prg_gcw + prg_rcs + prs_rcs
                                   + prr_rci + prg_rcg)) * orho * ifdry
@@ -704,9 +787,17 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
                  + c.LSUB * ocp * (prs_sde + prg_gde)) * orho * ifdry
     tten = torch.where(temp < c.T_0, tten_cold, tten_warm)
 
+    # aerosol tendencies (f90:2398-2408)
+    nwfaten = z
+    nifaten = z + 0.0
+    if aero:
+        nwfaten = -(pna_rca + pna_sca + pna_gca + pni_iha) * orho
+        if cfg.dusty_ice:
+            nifaten = (-(pnd_rcd + pnd_scd + pnd_gcd) - pni_inu) * orho
+
     out = dict(tten=tten, qvten=qvten, qcten=qcten, ncten=ncten,
                qiten=qiten, niten=niten, qrten=qrten, nrten=nrten,
-               qsten=qsten, qgten=qgten, nwfaten=z, nifaten=z + 0.0,
+               qsten=qsten, qgten=qgten, nwfaten=nwfaten, nifaten=nifaten,
                vts_boost=vts_boost, mvd_r_new=mvd_r, prr_gml=prr_gml)
     if want_rates:
         loc = locals()
@@ -735,14 +826,31 @@ def _prologue(state: ColumnState, pres, cfg: MicroConfig, want_idx=True):
     temp = t1d
     qv = torch.clamp(qv1d, min=1.0e-10)
     rho = 0.622 * pres / (c.R_GAS * temp * (qv + 0.622))
+    aero = cfg.is_aerosol_aware
+    if aero:
+        nwfa = torch.clamp(state.nwfa * rho, 11.1e6, 9999.0e6)
+        nifa = torch.clamp(state.nifa * rho, c.NA_IN1 * 0.01, 9999.0e6)
 
-    # cloud water (f90:1395-1418); non-aerosol: nc = Nt_c (f90:1410), so
-    # the aerosol-mode droplet-number clamp chain is not needed here
+    # cloud water (f90:1395-1418)
     l_qc = qc1d > c.R1
     qc1d = torch.where(l_qc, qc1d, 0.0)
     nc1d = torch.where(l_qc, nc1d, 0.0)
     rc = torch.where(l_qc, qc1d * rho, c.R1)
-    nc = torch.where(l_qc, torch.full_like(qv, nt_c), 2.0)
+    if aero:
+        # the droplet number of the state, clamped to the PSD limits
+        nc_raw = torch.clamp(nc1d * rho, min=2.0)
+        nu_raw = trunc_int(torch.clamp(fnint(1000.0e6 / nc_raw) + 2, max=15))
+        ccg1_n, ccg2_n, _u, ocg1_n, ocg2_n, cce2_n = _nuc_rows(nu_raw, dtype)
+        lamc = powc(nc_raw * c.AM_R * ccg2_n * ocg1_n / rc, c.OBMR)
+        xdc = (c.BM_R + nu_raw.to(dtype) + 1.0) / lamc
+        lamc = torch.where(xdc < c.D0C, cce2_n / c.D0C,
+                           torch.where(xdc > c.D0R * 2.0,
+                                       cce2_n / (c.D0R * 2.0), lamc))
+        nc_cl = torch.clamp(ccg1_n * ocg2_n * rc / c.AM_R
+                            * powc(lamc, c.BM_R), max=c.NT_C_MAX)
+        nc = torch.where(l_qc, nc_cl, 2.0)
+    else:
+        nc = torch.where(l_qc, torch.full_like(qv, nt_c), 2.0)  # f90:1410
 
     # cloud ice (f90:1420-1445)
     l_qi = qi1d > c.R1
@@ -846,6 +954,8 @@ def _prologue(state: ColumnState, pres, cfg: MicroConfig, want_idx=True):
                visco=visco, vsc2=vsc2, ocp=ocp, lvap=lvap, tcond=tcond,
                ilamr=ilamr, mvd_r=mvd_r, n0_r=n0_r, mvd_c=mvd_c, xdc=xdc,
                dc_g=dc_g, nu_c_f=nu_c_f)
+    if aero:
+        pro.update(nwfa=nwfa, nifa=nifa)
     if cfg.iiwarm:
         return pro, idx
 
@@ -1051,11 +1161,17 @@ def _sweep(n_loop, onstep, ksed, vts_mass, vts_num, ten_m, ten_n, dm, dn,
 
 
 def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
-                dt_f: float, want_rates: bool):
+                dt_f: float, want_rates: bool, aero_aux=None):
     """Phases 12-20 of mp_thompson (f90:2574-3686): provisional state at
     t+dt, PSD recompute, saturation adjustment + droplet nucleation, rain
     evaporation, terminal velocities + CFL-substepped sedimentation,
-    instant melt/freeze, final apply + PSD renorm (non-aerosol)."""
+    instant melt/freeze, final apply + PSD renorm.  Aerosol-aware configs
+    take the phase-14 lookups ``xnc_act`` and ``wev`` in ``aero_aux``
+    (from ``aerosol_lookup_stage``), as the kernel path does."""
+    aero = cfg.is_aerosol_aware
+    if aero and aero_aux is None:
+        raise ValueError("aerosol-aware configs need aero_aux "
+                         "(aerosol_lookup_stage)")
     dtype = state.qv.dtype
     dt, odt = _dt_pair(dt_f, dtype)
     odts = odt
@@ -1084,7 +1200,11 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
 
     l_qc = (qc1d + qcten * dt) > c.R1
     rc = torch.where(l_qc, (qc1d + qcten * dt) * rho, c.R1)
-    nc = torch.where(l_qc, torch.full_like(rc, nt_c), 2.0)  # f90:2602
+    if aero:
+        nc = torch.where(l_qc, torch.clamp((nc1d + ncten * dt) * rho,
+                                           min=2.0), 2.0)
+    else:
+        nc = torch.where(l_qc, torch.full_like(rc, nt_c), 2.0)  # f90:2602
 
     l_qi = (qi1d + qiten * dt) > c.R1
     ri = torch.where(l_qi, (qi1d + qiten * dt) * rho, c.R1)
@@ -1128,10 +1248,21 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
         clap = clap - fcd / dfcd
     xrc = rc + clap * rho
     prw_vcd_pos = clap * odt
-    # non-aerosol: activ_ncloud degenerates to Nt_c
+    # CCN activation (f90:2795-2801); non-aerosol: Nt_c
+    xnc_act = aero_aux["xnc_act"] if aero else nt_c
     pnc_wcd_pos = torch.where(clap > c.EPS,
-                              0.5 * (nt_c - nc + torch.abs(nt_c - nc))
+                              0.5 * (xnc_act - nc + torch.abs(xnc_act - nc))
                               * odts * orho, 0.0)
+    if aero:
+        # evaporate the drops smaller than Dc_star (f90:2804-2851)
+        evap_br = (clap < -c.EPS) & (ssatw < -1.0e-6)
+        pnc_wcd_pos = torch.where(
+            evap_br, torch.maximum(-nc * 0.99 * orho * odt,
+                                   -aero_aux["wev"] * orho * odt),
+            pnc_wcd_pos)
+        prw_vcd_pos = torch.where(
+            evap_br, torch.maximum(-rc * 0.99 * orho * odt, prw_vcd_pos),
+            prw_vcd_pos)
     # full-evaporation branch (xrc <= R1, f90:2853-2856)
     prw_vcd = torch.where(xrc > c.R1, prw_vcd_pos, -rc * orho * odt)
     pnc_wcd = torch.where(xrc > c.R1, pnc_wcd_pos, -nc * orho * odt)
@@ -1148,7 +1279,11 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
     qv_n = torch.clamp(qv1d + dt * qvten, min=1.0e-10)
     temp_n = t1d + dt * tten
     rc = torch.where(sat_mask, rc_n, rc)
-    nc = torch.where(sat_mask, nt_c, nc)
+    if aero:
+        nc = torch.where(sat_mask, torch.clamp((nc1d + dt * ncten) * rho,
+                                               min=2.0), nc)
+    else:
+        nc = torch.where(sat_mask, nt_c, nc)
     qv = torch.where(sat_mask, qv_n, qv)
     temp = torch.where(sat_mask, temp_n, temp)
     rho = torch.where(sat_mask,
@@ -1366,7 +1501,9 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
     precip = Precip(rain=pptrain, snow=pptsnow, graupel=pptgraul, ice=pptice)
     diag = {}
     if want_rates:
-        diag = {k: p8[k] for k in P8_RATES}
+        # the P8_RATES pass through; a p8 of P8_OUT alone (the split
+        # kernel's operand) has none
+        diag = {k: p8[k] for k in P8_RATES if k in p8}
         diag.update(prr_gml=prr_gml, prv_rev=prv_rev, pnr_rev=pnr_rev)
     return new_state, precip, diag
 
@@ -1381,23 +1518,97 @@ def core_from_tables(state: ColumnState, pres, dzq, tv, cfg: MicroConfig,
     return _post_rates(state, pres, dzq, p8, pro, cfg, dt_f, want_rates)
 
 
+def rates_from_tables(state: ColumnState, pres, tv, cfg: MicroConfig,
+                      dt_f: float, want_rates: bool):
+    """Phases 2-11 given the raw state and the table-stage channels: the
+    function of the aerosol split's first kernel (its plain version).
+    Returns the p8 dict (P8_OUT, + P8_RATES with ``want_rates``)."""
+    pro, _ = _prologue(state, pres, cfg, want_idx=False)
+    pro.update(tv)
+    return rates_and_tendencies(pro, cfg, dt_f, want_rates)
+
+
+def post_from_p8(state: ColumnState, pres, dzq, p8, cfg: MicroConfig,
+                 dt_f: float, want_rates: bool, aero_aux=None):
+    """Phases 12-20 given the raw state, the p8 tendencies and (aerosol
+    mode) the phase-14 lookups: the function of the aerosol split's
+    second kernel (its plain version).  The prologue is recomputed for
+    the phase-2 zeroed state and the stale snow moments."""
+    pro, _ = _prologue(state, pres, cfg, want_idx=False)
+    return _post_rates(state, pres, dzq, p8, pro, cfg, dt_f, want_rates,
+                       aero_aux)
+
+
+def aerosol_lookup_stage(state: ColumnState, pres, w1d, p8,
+                         tables: DeviceTables, cfg: MicroConfig, dt_f: float):
+    """The two aerosol-mode table lookups of phase 14 (f90:2795-2851), in
+    torch ops between the split kernels.  Both read the provisional
+    (phase-12) state, which depends on the p8 tendencies.  This stage
+    re-derives the phase-12 thermodynamics they read from the RAW
+    ``state.qc``/``state.nc``, as the reference does (ROADMAP.md Queue 3),
+    then returns ``xnc_act`` (CCN activation, ``aerosol.activ_ncloud``)
+    and ``wev`` (the drop-evaporation number from ``tnc_wev``, a plain
+    gather at every cell, where the reference gathered a band of levels
+    around the cells that consume it)."""
+    dt, _ = _dt_pair(dt_f, state.qv.dtype)
+    tten = p8["tten"]; qvten = p8["qvten"]; qcten = p8["qcten"]
+    ncten = p8["ncten"]; nwfaten = p8["nwfaten"]
+    temp = state.t + dt * tten
+    tempc = temp - 273.15
+    qv = torch.clamp(state.qv + dt * qvten, min=1.0e-10)
+    rho = 0.622 * pres / (c.R_GAS * temp * (qv + 0.622))
+    qvs = rslf(pres, temp)
+    ssatw = qv / qvs - 1.0
+    ssatw = torch.where(torch.abs(ssatw) < c.EPS, 0.0, ssatw)
+    diffu = 2.11e-5 * powc(temp / 273.15, 1.94) * (101325.0 / pres)
+    lvap = c.LVAP0 + (2106.0 - 4218.0) * tempc
+    tcond = (5.69 + 0.0168 * tempc) * 1.0e-5 * 418.936
+    nwfa = torch.clamp((state.nwfa + nwfaten * dt) * rho, min=11.1e6)
+    l_qc = (state.qc + qcten * dt) > c.R1
+    rc = torch.where(l_qc, (state.qc + qcten * dt) * rho, c.R1)
+    nc = torch.where(l_qc, torch.clamp((state.nc + ncten * dt) * rho,
+                                       min=2.0), 2.0)
+    xnc_act = torch.clamp(activ_ncloud(temp, w1d, nwfa,
+                                       tables.tnccn_corners), min=2.0)
+    t1_evd, rvs_wd = _subl_prefactor(temp, qvs, rho, diffu, tcond, ssatw,
+                                     lvap, 2.0 * c.PI)
+    dc_star = torch.sqrt(torch.clamp(
+        -2.0 * dt * t1_evd / (2.0 * c.PI) * 4.0 * diffu * ssatw * rvs_wd
+        / c.RHO_W, min=0.0))
+    idx_d = torch.clamp(trunc_int(1.0e6 * dc_star, -1.0, c.NBC + 1.0),
+                        1, c.NBC) - 1
+    idx_n = tnc_index(nc, float(c.T_NC[0]), c.NIC1, c.NBC)
+    idx_ce = torch.where(rc > _RC1, decade_index(rc, c.NIC2, c.NTB_C),
+                         torch.zeros_like(idx_d))
+    wev = tables.tnc_wev[idx_d, idx_ce, idx_n]
+    return {"xnc_act": xnc_act, "wev": wev}
+
+
 def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
                         tables: DeviceTables, cfg: MicroConfig,
                         want_rates: bool = True):
     """One microphysics timestep on a batch of (ncol, nz) columns.
 
     ``_prologue`` (lookup indices) -> ``_table_stage`` (torch gathers and
-    the rates that consume them) -> ``fused_step``, which launches the
-    CUDA kernel for a CUDA tensor and runs ``core_from_tables`` for a CPU
-    tensor.  ``w1d`` only feeds aerosol activation and is unused here.
+    the rates that consume them) -> ``fused_step``; for aerosol-aware
+    configs -> ``fused_rates`` -> ``aerosol_lookup_stage`` (torch ops)
+    -> ``fused_post``.  Each wrapper launches its CUDA kernel for a CUDA
+    tensor and runs its plain version for a CPU tensor.  ``w1d`` (the
+    cell-centred vertical velocity, m/s) feeds aerosol activation only.
     Returns (new ColumnState, Precip, dict of process-rate profiles)."""
-    from .fused_step import fused_step
-    if cfg.is_aerosol_aware:
-        raise NotImplementedError(_AEROSOL_TODO)
+    from . import fused_step as F
+    from . import split_step as A
+    if cfg.is_aerosol_aware and w1d is None:
+        raise ValueError("aerosol-aware configs need the vertical "
+                         "velocity w1d")
     dt_f = float(dt)
     pro, idx = _prologue(state, pres, cfg)
     tv = _table_stage(pro, idx, tables, cfg, dt_f)
-    return fused_step(state, pres, dzq, tv, cfg, dt_f, want_rates)
+    if not cfg.is_aerosol_aware:
+        return F.fused_step(state, pres, dzq, tv, cfg, dt_f, want_rates)
+    p8 = A.fused_rates(state, pres, tv, cfg, dt_f, want_rates)
+    aux = aerosol_lookup_stage(state, pres, w1d, p8, tables, cfg, dt_f)
+    return A.fused_post(state, pres, dzq, p8, aux, cfg, dt_f, want_rates)
 
 
 def batched_microphysics(state: ColumnState, pres, w, dzq, dt,

@@ -1,8 +1,9 @@
 """PyTorch port's KiD driver against the JAX package, on the CPU.
 
-mixed1 and warm1_recon at nx=4 run 10 steps from the same seeded state
-(hydrometeors added from a numpy seed) at istep0=150, inside the updraft
-pulse, in float64 through both packages' ``simulate``.  States and
+mixed1, warm1_recon and aerosol1d at nx=4 run 10 steps from the same
+seeded state (hydrometeors added from a numpy seed) at istep0=150, inside
+the updraft pulse, in float64 through both packages' ``simulate``; the
+JAX side of aerosol1d runs its split kernels in interpret mode.  States and
 profiles use the tolerance model of test_torch_solver.assert_equiv,
 precip streams rtol 1e-8.
 """
@@ -94,6 +95,18 @@ def test_simulate_matches_jax(name):
     assert float(got[1].ppt_rain.sum()) > 0.0
 
 
+def test_aerosol1d_matches_jax_split_kernels(monkeypatch):
+    """aerosol1d against the JAX package's kernel path (fused_rates ->
+    aerosol_lookup_stage -> fused_post, in interpret mode), which reads
+    the raw qc/nc in its lookups as the port does (ROADMAP.md Queue 3)."""
+    monkeypatch.setenv("KID_TPU_PALLAS", "1")
+    got, want, (st0, _, _) = _run_both("aerosol1d")
+    _check(got, want)
+    gst = got[0]
+    for f in ("nwfa", "nifa", "nc"):
+        assert not np.array_equal(getattr(gst, f).numpy(), st0[f]), f
+
+
 def test_simulate_profiles_match_jax():
     got, want, _ = _run_both("mixed1", profile_diags=True)
     assert len(got[1].profiles) == 12 + 36 + 9
@@ -125,7 +138,7 @@ def test_chunked_istep0_equals_one_run():
 
 def test_simulate_rejects_cases_not_ported():
     tabs = None
-    for name in ("cumulus2d", "aerosol1d"):
+    for name in ("cumulus2d",):
         case = tcases.CASES[name]
         st = KidState(*[torch.zeros(case.nx, case.nz, dtype=torch.float64)]
                       * 12)

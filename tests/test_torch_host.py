@@ -20,9 +20,11 @@ from kid_tpu.tables import index as jindex
 from kid_tpu.tables.cache import get_tables as j_get_tables
 from kid_tpu_torch import special as tspecial
 from kid_tpu_torch.convert import state_from_numpy, tables_from_numpy
-from kid_tpu_torch.driver.cases import MIXED1
+from kid_tpu_torch.driver.cases import AEROSOL1D, MIXED1
 from kid_tpu_torch.driver.loop import initial_state, run_case
 from kid_tpu_torch.micro import fastmath as tfast
+from kid_tpu_torch.micro import fused_step as fs
+from kid_tpu_torch.micro import split_step as ss
 from kid_tpu_torch.micro.solver import device_tables
 from kid_tpu_torch.tables import builders as tbuild
 from kid_tpu_torch.tables import index as tindex
@@ -159,6 +161,16 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_case(dataclasses.replace(MIXED1, nx=2), n_steps=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_case(dataclasses.replace(AEROSOL1D, nx=2), n_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tables_from_numpy(j_get_tables(iiwarm=True))
     tabs = device_tables(t_get_tables(iiwarm=True), device="cpu")
     assert tabs.t_efrw.device.type == "cpu"
+    # the kernel wrappers launch only on the card; a CPU tensor runs the
+    # plain version through the wrapper, never the launcher
+    cfg = AEROSOL1D.micro
+    x = torch.zeros(3, 2, 8)
+    for launch in (fs.launch_packed, ss.launch_rates_packed,
+                   ss.launch_post_packed):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            launch(x, cfg, 1.0, False)

@@ -198,7 +198,8 @@ def test_fused_step_rejects_bad_inputs():
     tv = {"ef_rw": torch.zeros(3, 8, dtype=torch.float32)}
     with pytest.raises(ValueError):
         fused_step(st, pres, dzq, tv, cfg, 1.0, False)
-    with pytest.raises(NotImplementedError):
-        S.column_microphysics(st, pres, None, dzq, 1.0, None,
-                              MicroConfig(is_aerosol_aware=True))
+    tv = {k: torch.zeros(3, 8, dtype=torch.float64) for k in S.TV_ICE}
+    with pytest.raises(ValueError, match="non-aerosol"):
+        fused_step(st, pres, dzq, tv, MicroConfig(is_aerosol_aware=True),
+                   1.0, False)
 
