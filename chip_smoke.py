@@ -9,7 +9,7 @@ on failure:
 
   1. card and build: the card's name and power limit, then the kernels
      of ``kid_tpu_torch/micro/csrc`` (``fused_step``, ``fused_rates``,
-     ``fused_post``), built together;
+     ``fused_post``, ``fused_kid_step``), built together;
   2. ``fused_step`` against its plain PyTorch version on the card, on a
      seeded synthetic batch (ncol=1000, nz 120 and 130, mixed and warm,
      rate profiles on and off, float64 and float32);
@@ -18,6 +18,11 @@ on failure:
      plain path's own p8 and lookups, so each kernel is held alone), and
      a cold, ice-supersaturated batch whose printed counts show DeMott
      nucleation and the aerosol tendencies firing;
+  2c. ``fused_kid_step`` (the fused 1-D driver step) against its plain
+     version on seeded driver states (ncol=1000, nz 120 and 130, mixed
+     and warm, rate profiles on and off, float64 and float32) with the
+     table-stage channels built from the driver's provisional state, at
+     a step inside the updraft pulse;
   3. the main path: mixed1 widened to 8192 columns x 120 levels in
      float32 through ``run_case`` (150 spin-up steps) and ``simulate``
      (50 steps into the updraft pulse, timed as 5 windows of 10 steps:
@@ -27,9 +32,17 @@ on failure:
   3b. the aerosol main path: aerosol1d widened the same way, through
      ``fused_rates`` -> lookups -> ``fused_post`` (each launched once per
      step), with the same checks, profile and timings;
+  3c. the fused driver: mixed1 widened the same way with
+     KID_TPU_TORCH_FUSED_DRIVER=1 (set by this script), through
+     ``fused_kid_step`` alone, with the same checks, profile and timings,
+     its ms/step printed beside phase 3's;
   4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
      256 columns from a seeded state at step 150, 20 steps through the
-     kernel path and through the plain path, in float64.
+     kernel path and through the plain path, in float64; mixed1 and
+     warm1_recon through the fused driver the same way, and the fused
+     driver against the default kernel path on the nine scheme fields
+     and the precip (nc, nwfa and nifa differ by design and are printed,
+     not gated).
 
 Every kernel's launch count is set to 0 just before each main path is
 driven and read just after.  The line before the last two is the card's
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -57,6 +71,8 @@ PEAK_BYTES = 3.35e12
 BATCH_NCOL = 1000      # kernel vs plain; not a multiple of any block
 MAIN_NX = 8192         # the main path, mixed1 widened
 E2E_NX = 256           # end-to-end parity
+# main-path steps: spin-up, then timed windows
+N_SPIN, N_TIMED, N_WINDOW = 150, 50, 10
 
 
 def card_line() -> str:
@@ -169,6 +185,67 @@ def phase_kernel_vs_plain(dev):
                           f"(limit {noise:g})", flush=True)
 
 
+def kid_step_inputs(case, dtype, dev, istep=150):
+    """A seeded driver state of ``case``, m(t) at ``istep`` and the
+    table-stage channels built from the driver's provisional state (which
+    advects ``advected_fields`` only), as the fused driver's step does."""
+    from kid_tpu_torch.driver.advection import (advective_tendency_z,
+                                                divergence_tendency_z)
+    from kid_tpu_torch.driver.loop import KidState, advected_fields
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+    grid, cfg = case.grid(), case.micro
+    st = KidState(*[t.to(dtype) for t in seeded_state(case, dev)])
+    m = case.time_modulation(istep * case.dt)
+
+    def prof(a):
+        return torch.tensor(np.array(a), dtype=dtype, device=dev)
+
+    w_pat = prof(case.rhow_pattern(grid))
+    rho0, dz = prof(grid.rho0), prof(grid.dz)
+    prov = st._asdict()
+    for f in advected_fields(cfg):
+        q = prov[f]
+        ten = (advective_tendency_z(q, m * w_pat, rho0, dz)
+               + divergence_tendency_z(q, m * w_pat, rho0, dz))
+        prov[f] = q + ten * case.dt
+    micro_in = ColumnState(t=prov["theta"] * prof(grid.exner)[None, :],
+                           **{f: prov[f] for f in ColumnState._fields[1:]})
+    tables = S.device_tables(get_tables(iiwarm=cfg.iiwarm), dtype, dev)
+    pro, idx = S._prologue(micro_in, prof(grid.pres).expand(case.nx, -1),
+                           cfg)
+    tv = S._table_stage(pro, idx, tables, cfg, case.dt)
+    profs = (w_pat[0], prof(grid.pres), prof(grid.exner), rho0, dz)
+    return st, m, tv, profs
+
+
+def phase_kid_step_vs_plain(dev):
+    from kid_tpu_torch.driver.cases import MIXED1, WARM1_RECON
+    from kid_tpu_torch.micro.fused_kid_step import (fused_kid_step,
+                                                    fused_kid_step_ref)
+    for nz in (120, 130):
+        for base in (MIXED1, WARM1_RECON):
+            case = dataclasses.replace(base, nx=BATCH_NCOL, nz=nz)
+            for dtype in (torch.float64, torch.float32):
+                st, m, tv, (w, p, e, r, dz) = kid_step_inputs(case, dtype,
+                                                              dev)
+                noise = 1e-9 if dtype == torch.float64 else 1e-3
+                for want_rates in (True, False):
+                    args = (st, w, m, tv, p, e, r, dz, case.micro, case.dt,
+                            want_rates)
+                    got = fused_kid_step(*args)
+                    ref = fused_kid_step_ref(*args)
+                    torch.cuda.synchronize()
+                    worst = equiv_report(flat(got), flat(ref), noise)
+                    print(f"fused_kid_step vs plain  nz={nz} "
+                          f"{'warm ' if case.micro.iiwarm else 'mixed'} "
+                          f"{str(dtype)[6:]} rates={int(want_rates)} "
+                          f"m={m:.4f}: worst normalised error {worst:.3e} "
+                          f"(limit {noise:g}), rain "
+                          f"{float(got[1].rain.sum()):.3e}", flush=True)
+
+
 def seeded_w(ncol, nz, seed, dtype, dev):
     """Seeded cell-centred vertical velocity (m/s) for activation."""
     rng = np.random.default_rng(seed + 100)
@@ -275,10 +352,11 @@ def time_ms(fn, reps):
 
 def kernels():
     """Every kernel wrapper of the port by name (each has a launch count)."""
+    import kid_tpu_torch.micro.fused_kid_step as FK
     import kid_tpu_torch.micro.fused_step as F
     import kid_tpu_torch.micro.split_step as A
     return {"fused_step": F.fused_step, "fused_rates": A.fused_rates,
-            "fused_post": A.fused_post}
+            "fused_post": A.fused_post, "fused_kid_step": FK.fused_kid_step}
 
 
 def reset_counts():
@@ -296,13 +374,14 @@ def run_main_path(dev, card, case, path_kernels, packers):
     checks the outputs and that each kernel of ``path_kernels`` launched
     once per step (and no other kernel launched).  ``packers`` are
     (module, function name) of the kernels' input packers: the last input
-    of each is kept.  Returns (launch counts, last inputs by packer)."""
+    of each is kept.  Returns (launch counts, last inputs by packer, median
+    ms/step)."""
     from kid_tpu_torch.driver.loop import KidState, run_case, simulate
     from kid_tpu_torch.micro.solver import device_tables
     from kid_tpu_torch.tables.cache import get_tables
 
     dtype = torch.float32
-    n_spin, n_timed, n_window = 150, 50, 10
+    n_spin, n_timed, n_window = N_SPIN, N_TIMED, N_WINDOW
     t0 = time.perf_counter()
     st, _ = run_case(case, dtype, n_steps=n_spin, device=dev)
     torch.cuda.synchronize()
@@ -373,14 +452,15 @@ def run_main_path(dev, card, case, path_kernels, packers):
           f"{rain:.3e} [{card}]", flush=True)
     profile_steps(dev, card, final, tables, case, n_spin + n_timed, step_ms,
                   path_kernels)
-    return counts, last
+    return counts, last, step_ms
 
 
 def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
                   got_want):
     """Time ``launch`` (the kernel) and ``plain`` (its plain version) on
-    the main path's input ``x``, bound the work, check the two agree under
-    the f32 knife-edge model; returns the kernels-line record."""
+    the main path's input ``x`` (a packed tensor, or a tuple of them),
+    bound the work, check the two agree under the f32 knife-edge model;
+    returns the kernels-line record."""
     got, want = got_want()
     worst = equiv_report(got, want, 1e-3)
     max_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
@@ -389,7 +469,9 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
     counter = OpCounter()
     with counter:
         plain()
-    n_bytes = x.numel() * x.element_size() + n_out_bytes
+    ins = x if isinstance(x, tuple) else (x,)
+    x = ins[0]
+    n_bytes = sum(t.numel() * t.element_size() for t in ins) + n_out_bytes
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     ops_ms = counter.ops / PEAK_F32_OPS * 1e3
     print(f"{name} at the main path's input {tuple(x.shape[1:])} f32: "
@@ -410,7 +492,8 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
 
 
 # the def line of each TPU kernel in kid_tpu/micro/pallas_step.py
-REPLACES = {"fused_step": 353, "fused_rates": 202, "fused_post": 266}
+REPLACES = {"fused_step": 353, "fused_rates": 202, "fused_post": 266,
+            "fused_kid_step": 67}
 
 
 def phase_main_path(dev, card):
@@ -420,8 +503,8 @@ def phase_main_path(dev, card):
     from kid_tpu_torch.micro.state import ColumnState
 
     case = dataclasses.replace(MIXED1, nx=MAIN_NX)
-    counts, last = run_main_path(dev, card, case, ("fused_step",),
-                                 [(F, "pack_inputs")])
+    counts, last, step_ms = run_main_path(dev, card, case, ("fused_step",),
+                                          [(F, "pack_inputs")])
 
     # the kernel and its plain version on the main path's last input
     x = last["pack_inputs"]
@@ -440,7 +523,51 @@ def phase_main_path(dev, card):
     return [kernel_record(
         "fused_step", card, x, lambda: F.launch_packed(x, cfg, dt_f, False),
         lambda: F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False),
-        out_bytes, counts["fused_step"], got_want)]
+        out_bytes, counts["fused_step"], got_want)], step_ms
+
+
+def phase_fused_driver_main_path(dev, card, default_ms):
+    import kid_tpu_torch.micro.fused_kid_step as FK
+    from kid_tpu_torch.driver.cases import MIXED1
+    from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, KidState
+    from kid_tpu_torch.micro import solver as S
+
+    case = dataclasses.replace(MIXED1, nx=MAIN_NX)
+    os.environ[FUSED_DRIVER_ENV] = "1"
+    try:
+        counts, last, step_ms = run_main_path(
+            dev, card, case, ("fused_kid_step",), [(FK, "pack_kid_inputs")])
+    finally:
+        del os.environ[FUSED_DRIVER_ENV]
+    print(f"fused driver mixed1 ({case.nx}, {case.nz}) f32: median "
+          f"{step_ms:.3f} ms/step against {default_ms:.3f} ms/step of the "
+          f"default path (phase 3, same call) [{card}]", flush=True)
+
+    # the kernel and its plain version on the main path's last input,
+    # the last timed step's
+    x, prof = last["pack_kid_inputs"]
+    cfg, dt_f = case.micro, case.dt
+    m = case.time_modulation((N_SPIN + N_TIMED - 1) * dt_f)
+    ncol, nz = x.shape[1:]
+    st_in = KidState(*x[:12])
+    tv = dict(zip(S.tv_keys(cfg), x[12:]))
+    rows = (prof[0], *prof[1:, :nz])
+    out_bytes = (12 * ncol * nz + 4 * ncol) * x.element_size()
+
+    def plain():
+        return FK.fused_kid_step_ref(st_in, rows[0], m, tv, *rows[1:], cfg,
+                                     dt_f, False)
+
+    def got_want():
+        y, ppt = FK.launch_kid_packed(x, prof, m, cfg, dt_f, False)
+        ref = plain()
+        torch.cuda.synchronize()
+        return flat(FK.unpack_kid_outputs(y, ppt, False)), flat(ref)
+
+    return [kernel_record(
+        "fused_kid_step", card, (x, prof),
+        lambda: FK.launch_kid_packed(x, prof, m, cfg, dt_f, False), plain,
+        out_bytes, counts["fused_kid_step"], got_want)]
 
 
 def phase_aerosol_main_path(dev, card):
@@ -450,7 +577,7 @@ def phase_aerosol_main_path(dev, card):
     from kid_tpu_torch.micro.state import ColumnState
 
     case = dataclasses.replace(AEROSOL1D, nx=MAIN_NX)
-    counts, last = run_main_path(
+    counts, last, _ = run_main_path(
         dev, card, case, ("fused_rates", "fused_post"),
         [(A, "pack_rates_inputs"), (A, "pack_post_inputs")])
     cfg, dt_f = case.micro, case.dt
@@ -605,6 +732,60 @@ def phase_end_to_end(dev):
               f"{float(k_out.ppt_rain.sum()):.4e}", flush=True)
 
 
+def phase_fused_driver_end_to_end(dev):
+    import kid_tpu_torch.micro.fused_kid_step as FK
+    from kid_tpu_torch.driver.cases import CASES
+    from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, simulate
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    scheme = ("theta", "qv", "qc", "qr", "nr", "qi", "ni", "qs", "qg")
+    for name in ("mixed1", "warm1_recon"):
+        case = dataclasses.replace(CASES[name], nx=E2E_NX)
+        tables = device_tables(get_tables(iiwarm=case.micro.iiwarm),
+                               torch.float64, dev)
+        st0 = seeded_state(case, dev)
+
+        def run():
+            return simulate(st0, tables, case, 20, istep0=150, device=dev)
+
+        d_st, d_out = run()                  # the default kernel path
+        kernel = FK.fused_kid_step
+        os.environ[FUSED_DRIVER_ENV] = "1"
+        try:
+            n0 = read_counts()
+            k_st, k_out = run()
+            n1 = read_counts()
+            FK.fused_kid_step = FK.fused_kid_step_ref  # the plain path
+            p_st, p_out = run()
+        finally:
+            FK.fused_kid_step = kernel
+            del os.environ[FUSED_DRIVER_ENV]
+        torch.cuda.synchronize()
+        launched = {k: n1[k] - n0[k] for k in n1}
+        if launched != {k: 20 if k == "fused_kid_step" else 0 for k in n1}:
+            raise AssertionError(f"fused driver {name}: launches {launched}")
+        worst = equiv_report(k_st._asdict(), p_st._asdict(), 1e-8)
+        worst_d = equiv_report({f: getattr(k_st, f) for f in scheme},
+                               {f: getattr(d_st, f) for f in scheme}, 1e-8)
+        for k in ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice"):
+            a = getattr(k_out, k).cpu().numpy()
+            for other, label in ((p_out, "plain"), (d_out, "default")):
+                np.testing.assert_allclose(
+                    a, getattr(other, k).cpu().numpy(), rtol=1e-8,
+                    atol=1e-20, err_msg=f"fused driver {name} {k} vs {label}")
+        drift = []
+        for f in ("nc", "nwfa", "nifa"):
+            a, b = getattr(k_st, f), getattr(d_st, f)
+            rel = float((a - b).abs().max() / b.abs().max())
+            drift.append(f"{f} {rel:.3e}")
+        print(f"end to end fused driver {name} ({case.nx} columns, 20 steps, "
+              f"f64): kernel path vs plain path worst normalised error "
+              f"{worst:.3e} (limit 1e-8); vs the default kernel path on the "
+              f"nine scheme fields {worst_d:.3e} (limit 1e-8); precip within "
+              f"rtol 1e-8 of both; not gated, max |fused - default| / max "
+              f"|default|: {', '.join(drift)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -614,13 +795,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
-    print(f"kernel build (fused_step, fused_rates, fused_post, in "
-          f"parallel): {cuda_build.build():.1f} s", flush=True)
+    print(f"kernel build ({', '.join(kernels())}, in parallel): "
+          f"{cuda_build.build():.1f} s", flush=True)
     phase_kernel_vs_plain(dev)
     phase_split_vs_plain(dev)
-    records = phase_main_path(dev, card)
+    phase_kid_step_vs_plain(dev)
+    records, default_ms = phase_main_path(dev, card)
     records += phase_aerosol_main_path(dev, card)
+    records += phase_fused_driver_main_path(dev, card, default_ms)
     phase_end_to_end(dev)
+    phase_fused_driver_end_to_end(dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)

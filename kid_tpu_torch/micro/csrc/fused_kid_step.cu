@@ -1,0 +1,194 @@
+// The whole 1-D KiD driver step as one CUDA kernel for Hopper (sm_90a):
+// vertical MUSCL advection and the divergence closure of the 12 KidState
+// channels, the provisional state q + (adv + div)*dt, theta -> T, phases
+// 2-20 of the Thompson09 microphysics and T -> theta.
+//
+// Replaces kid_tpu/micro/pallas_step.py::fused_kid_step (the Pallas TPU
+// kernel of the opt-in fused driver).  Its plain PyTorch version is
+// kid_tpu_torch/micro/fused_kid_step.py::fused_kid_step_ref; the advection
+// below transcribes kid_tpu_torch/driver/advection.py in the same
+// association order, and the microphysics is the prologue -> rates -> post
+// of thompson.cuh that fused_step.cu runs.
+//
+// Boundary: the raw state in KidState order (theta, qv, qc, qr, nr, qi, ni,
+// qs, qg, nc, nwfa, nifa) and the 18 table-stage channels (1 warm) go in,
+// with a (5, nz + 1) profile input (the rho0*w face pattern, pres, exner,
+// rho0, dz); the new state in KidState order (+36 rate profiles) and 4
+// per-column precip values come out.  The table-stage channels are built by
+// the caller from its own provisional state, as the reference does.
+//
+// Mapping: one thread block per column, one thread per level, as
+// fused_step.cu.  The column's 12 raw channels are staged in shared memory
+// because the MUSCL face values at level k read levels k-2 .. k+2; each
+// thread computes the fluxes of both faces of its level (the top face of
+// level k is recomputed by level k+1), so no flux is exchanged.  Shared
+// memory: 12 x MAX_NZ values plus Shared<T>, 29.7 KB in float64, inside the
+// 48 KB of static shared memory.
+//
+// Bound at (ncol, nz) = (8192, 120) f32 without rates: 30 input + 12 output
+// channels of 3.93 MB (+ precip and the profiles) is ~165 MB, >= ~49 us at
+// 3.35 TB/s; bytes bound it.  A first version that aims at being right:
+// float32 and float64, no fast math (-fmad=false).
+
+#include "thompson.cuh"
+
+namespace {
+
+// the driver's state channels (kid_tpu_torch/driver/loop.py::KidState)
+enum KidCh {
+  K_theta, K_qv, K_qc, K_qr, K_nr, K_qi, K_ni, K_qs, K_qg, K_nc, K_nwfa,
+  K_nifa, N_KID
+};
+// rows of the profile input, each nz + 1 long
+enum ProfRow { R_wpat, R_pres, R_exner, R_rho0, R_dz };
+
+// van Leer limiter phi(r) = (r + |r|) / (1 + |r|)
+template <typename T> __device__ __forceinline__ T vanleer(T r) {
+  return (r + fabs(r)) / ((T)1.0 + fabs(r));
+}
+
+// the upwind MUSCL value at interior face j (1 <= j <= nz-1, between
+// levels j-1 and j) of the column ``s`` (advection._muscl_face_values on
+// the edge-padded column)
+template <typename T>
+__device__ __forceinline__ T face_value(const T* s, int j, int nz, T vel) {
+  const T eps = (T)1e-30;
+  const T qm2 = s[j >= 2 ? j - 2 : 0], qm1 = s[j - 1], q0 = s[j];
+  const T qp1 = s[j + 1 < nz ? j + 1 : nz - 1];
+  const T d_lo = qm1 - qm2;   // q_{j-1} - q_{j-2}
+  const T d_mid = q0 - qm1;   // q_j - q_{j-1}
+  const T d_hi = qp1 - q0;    // q_{j+1} - q_j
+  const T den = fabs(d_mid) > eps ? d_mid : eps;
+  const T slope_up = vanleer(d_lo / den) * d_mid;
+  const T slope_dn = vanleer(d_hi / den) * d_mid;
+  const T q_left = qm1 + (T)0.5 * slope_up;
+  const T q_right = q0 - (T)0.5 * slope_dn;
+  return vel >= (T)0.0 ? q_left : q_right;
+}
+
+template <typename T, bool WARM, bool RATES>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_kid_step_kernel(const T* __restrict__ x, const T* __restrict__ prof,
+                          T* __restrict__ y, T* __restrict__ ppt, int ncol,
+                          int nz, int l_sediment, double nt_c, double dt,
+                          double ifdry, double mmod) {
+  __shared__ Shared<T> sh;
+  __shared__ T raw[N_KID][kMaxThreads];
+  const int col = blockIdx.x;
+  const bool valid = (int)threadIdx.x < nz;
+  const int kl = valid ? threadIdx.x : nz - 1;  // padding mirrors the top
+  const size_t plane = (size_t)ncol * nz;
+  const size_t off = (size_t)col * nz + kl;
+  const Params<T> P = make_params<T>(dt, nt_c, ifdry, l_sediment, 0, 0);
+  const T* pr = prof + kl;
+  const int np1 = nz + 1;
+
+  if (valid) {
+#pragma unroll
+    for (int c = 0; c < N_KID; ++c) raw[c][kl] = x[c * plane + off];
+  }
+  __syncthreads();
+
+  // face fluxes rho0*w of this level's bottom (kl) and top (kl+1) faces;
+  // the end faces of the column carry no flux
+  const T m = (T)mmod;
+  const T w_lo = m * pr[R_wpat * np1];
+  const T w_hi = m * pr[R_wpat * np1 + 1];
+  const T f_lo = kl == 0 ? (T)0 : w_lo;
+  const T f_hi = kl + 1 == nz ? (T)0 : w_hi;
+  const T rd = pr[R_rho0 * np1] * pr[R_dz * np1];
+  T prov[N_KID];
+#pragma unroll
+  for (int c = 0; c < N_KID; ++c) {
+    const T* s = raw[c];
+    const T q = s[kl];
+    const T flux_lo = kl == 0 ? (T)0 : w_lo * face_value(s, kl, nz, w_lo);
+    const T flux_hi =
+        kl + 1 == nz ? (T)0 : w_hi * face_value(s, kl + 1, nz, w_hi);
+    const T adv = -(flux_hi - flux_lo) / rd;
+    const T dvg = q * (f_hi - f_lo) / rd;
+    const T ten = adv + dvg;
+    prov[c] = q + ten * P.dt;
+  }
+
+  // the provisional state as the microphysics' cell (theta -> T)
+  const T exner = pr[R_exner * np1];
+  Cell<T> s;
+  s.t1d = prov[K_theta] * exner;
+  s.qv1d = prov[K_qv]; s.qc1d = prov[K_qc]; s.qi1d = prov[K_qi];
+  s.qr1d = prov[K_qr]; s.qs1d = prov[K_qs]; s.qg1d = prov[K_qg];
+  s.ni1d = prov[K_ni]; s.nr1d = prov[K_nr]; s.nc1d = prov[K_nc];
+  s.nwfa1d = prov[K_nwfa]; s.nifa1d = prov[K_nifa];
+  s.pres = pr[R_pres * np1];
+  const T dzq = pr[R_dz * np1];
+
+  Pro<T> p;
+  prologue<T, WARM, false>(s, P, valid, sh, p);
+  P8<T> q;
+  T* d = RATES ? y + N_KID * plane + off : nullptr;
+  rates<T, WARM, RATES, false>(p, x + N_KID * plane + off, plane, P, valid,
+                               q, d);
+  if (RATES && valid) d[D_prr_gml * plane] = q.prr_gml;
+  Out<T> o;
+  post<T, WARM, false>(s, p, q, (T)0, (T)0, dzq, P, valid, nz, sh, o);
+
+  if (valid) {
+    T* n = y + off;
+    n[K_theta * plane] = o.t / exner;
+    n[K_qv * plane] = o.qv; n[K_qc * plane] = o.qc; n[K_qr * plane] = o.qr;
+    n[K_nr * plane] = o.nr; n[K_qi * plane] = o.qi; n[K_ni * plane] = o.ni;
+    n[K_qs * plane] = o.qs; n[K_qg * plane] = o.qg; n[K_nc * plane] = o.nc;
+    n[K_nwfa * plane] = o.nwfa; n[K_nifa * plane] = o.nifa;
+  }
+  if (threadIdx.x == 0) {
+    ppt[0 * (size_t)ncol + col] = o.pptrain;
+    ppt[1 * (size_t)ncol + col] = o.pptsnow;
+    ppt[2 * (size_t)ncol + col] = o.pptgraul;
+    ppt[3 * (size_t)ncol + col] = o.pptice;
+  }
+  if (RATES && valid) {
+    d[D_prv_rev * plane] = o.prv_rev;
+    d[D_pnr_rev * plane] = o.pnr_rev;
+  }
+}
+
+template <typename T>
+int launch(const T* x, const T* prof, T* y, T* ppt, int ncol, int nz,
+           int iiwarm, int want_rates, int l_sediment, double nt_c, double dt,
+           double ifdry, double mmod, void* stream) {
+  auto go = [&](auto kernel) {
+    return launch_columns(kernel, ncol, nz, stream, x, prof, y, ppt, ncol,
+                          nz, l_sediment, nt_c, dt, ifdry, mmod);
+  };
+  if (iiwarm)
+    return want_rates ? go(fused_kid_step_kernel<T, true, true>)
+                      : go(fused_kid_step_kernel<T, true, false>);
+  return want_rates ? go(fused_kid_step_kernel<T, false, true>)
+                    : go(fused_kid_step_kernel<T, false, false>);
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes by kid_tpu_torch/micro/fused_kid_step.py.
+// x: (12 + ntv, ncol, nz), prof: (5, nz + 1), y: (12 [+36], ncol, nz),
+// ppt: (4, ncol), all contiguous on the card; mmod is m(t) in the state's
+// dtype.  Returns the cudaError_t of the launch.
+extern "C" int kid_fused_kid_step_f32(const float* x, const float* prof,
+                                      float* y, float* ppt, int ncol, int nz,
+                                      int iiwarm, int want_rates,
+                                      int l_sediment, double nt_c, double dt,
+                                      double ifdry, double mmod,
+                                      void* stream) {
+  return launch<float>(x, prof, y, ppt, ncol, nz, iiwarm, want_rates,
+                       l_sediment, nt_c, dt, ifdry, mmod, stream);
+}
+
+extern "C" int kid_fused_kid_step_f64(const double* x, const double* prof,
+                                      double* y, double* ppt, int ncol,
+                                      int nz, int iiwarm, int want_rates,
+                                      int l_sediment, double nt_c, double dt,
+                                      double ifdry, double mmod,
+                                      void* stream) {
+  return launch<double>(x, prof, y, ppt, ncol, nz, iiwarm, want_rates,
+                        l_sediment, nt_c, dt, ifdry, mmod, stream);
+}

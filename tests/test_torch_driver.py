@@ -1,8 +1,9 @@
 """PyTorch port's KiD driver against the JAX package, on the CPU.
 
-mixed1, warm1_recon and aerosol1d at nx=4 run 10 steps from the same
-seeded state (hydrometeors added from a numpy seed) at istep0=150, inside
-the updraft pulse, in float64 through both packages' ``simulate``; the
+mixed1, warm1_recon, warm1 (nz=130), deep1 and aerosol1d at nx=4 run 10
+steps from the same seeded state (hydrometeors added from a numpy seed) at
+istep0=150, inside the updraft pulse, in float64 through both packages'
+``simulate``; the
 JAX side of aerosol1d runs its split kernels in interpret mode.  States and
 profiles use the tolerance model of test_torch_solver.assert_equiv,
 precip streams rtol 1e-8.
@@ -88,7 +89,7 @@ def _check(got, want):
         assert_equiv({k: g}, {k: w})
 
 
-@pytest.mark.parametrize("name", ["mixed1", "warm1_recon"])
+@pytest.mark.parametrize("name", ["mixed1", "warm1_recon", "warm1", "deep1"])
 def test_simulate_matches_jax(name):
     got, want, _ = _run_both(name)
     _check(got, want)

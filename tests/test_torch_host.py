@@ -19,6 +19,7 @@ from kid_tpu.tables import builders as jbuild
 from kid_tpu.tables import index as jindex
 from kid_tpu.tables.cache import get_tables as j_get_tables
 from kid_tpu_torch import special as tspecial
+from kid_tpu_torch.__main__ import main as cli_main
 from kid_tpu_torch.convert import state_from_numpy, tables_from_numpy
 from kid_tpu_torch.driver.cases import AEROSOL1D, MIXED1
 from kid_tpu_torch.driver.loop import initial_state, run_case
@@ -164,6 +165,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         run_case(dataclasses.replace(AEROSOL1D, nx=2), n_steps=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tables_from_numpy(j_get_tables(iiwarm=True))
+    # the command line runs on the card unless given --device cpu
+    assert cli_main(["run", "warm1_recon", "--steps", "1"]) != 0
     tabs = device_tables(t_get_tables(iiwarm=True), device="cpu")
     assert tabs.t_efrw.device.type == "cpu"
     # the kernel wrappers launch only on the card; a CPU tensor runs the
