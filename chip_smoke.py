@@ -9,18 +9,22 @@ on failure:
 
   1. card and build: the card's name and power limit, then the kernels
      of ``kid_tpu_torch/micro/csrc`` (``fused_step``, ``fused_rates``,
-     ``fused_post``, ``fused_kid_step``), built together;
+     ``fused_post``, ``fused_kid_step``), built together, and what the
+     card gives each instantiation (registers, spill bytes, static shared
+     bytes, active blocks per SM at nz 120 and 256);
   2. ``fused_step`` against its plain PyTorch version on the card, on a
-     seeded synthetic batch (ncol=1000, nz 120 and 130, mixed and warm,
-     rate profiles on and off, float64 and float32);
+     seeded synthetic batch (ncol=1000, nz 120 and 130 in float64 and
+     float32, and nz 33, 64, 97 and 256 in float64, which put a warp edge
+     at one level, a full warp, a ragged warp and eight warps; mixed and
+     warm, rate profiles on and off);
   2b. ``fused_rates`` and ``fused_post`` against their plain versions on
      the same batches with aerosol-aware configs (``fused_post`` fed the
      plain path's own p8 and lookups, so each kernel is held alone), and
      a cold, ice-supersaturated batch whose printed counts show DeMott
      nucleation and the aerosol tendencies firing;
   2c. ``fused_kid_step`` (the fused 1-D driver step) against its plain
-     version on seeded driver states (ncol=1000, nz 120 and 130, mixed
-     and warm, rate profiles on and off, float64 and float32) with the
+     version on seeded driver states (ncol=1000, the nz and dtypes of
+     phase 2, mixed and warm, rate profiles on and off) with the
      table-stage channels built from the driver's provisional state, at
      a step inside the updraft pulse;
   3. the main path: mixed1 widened to 8192 columns x 120 levels in
@@ -44,6 +48,11 @@ on failure:
      and the precip (nc, nwfa and nifa differ by design and are printed,
      not gated).
 
+Phases 2, 2b and 2c print a SHA-256 digest (first 16 hex digits) of each
+kernel's outputs on each batch, and a combined digest per kernel: the
+inputs are seeded and the kernels deterministic, so a change to a kernel
+that keeps its results bit for bit keeps the digests.
+
 Every kernel's launch count is set to 0 just before each main path is
 driven and read just after.  The line before the last two is the card's
 name and power limit, then one JSON line describing every kernel, then
@@ -52,6 +61,7 @@ name and power limit, then one JSON line describing every kernel, then
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -73,6 +83,11 @@ MAIN_NX = 8192         # the main path, mixed1 widened
 E2E_NX = 256           # end-to-end parity
 # main-path steps: spin-up, then timed windows
 N_SPIN, N_TIMED, N_WINDOW = 150, 50, 10
+# (nz, dtype) of the kernel-vs-plain batches of phases 2 and 2c
+VS_PLAIN = [(120, torch.float64), (120, torch.float32),
+            (130, torch.float64), (130, torch.float32),
+            (33, torch.float64), (64, torch.float64), (97, torch.float64),
+            (256, torch.float64)]
 
 
 def card_line() -> str:
@@ -110,6 +125,34 @@ def equiv_report(got: dict, want: dict, noise: float) -> float:
             raise AssertionError(f"{k}: {n_flip} flipped cells")
         worst = max(worst, float(np.sort(rel.ravel())[-1 - n_flip]))
     return worst
+
+
+def digest(tensors) -> str:
+    """First 16 hex digits of the SHA-256 of ``tensors``' bytes, in
+    order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def record_digest(digests: dict, kernel: str, label: str,
+                  outputs: dict) -> str:
+    """Adds the digest of ``outputs`` to ``digests`` (kernel -> [(batch
+    label, digest)]) and returns it."""
+    d = digest(outputs.values())
+    digests.setdefault(kernel, []).append((label, d))
+    return d
+
+
+def print_digests(digests: dict, *names):
+    """One combined digest per kernel over its batches' digests."""
+    for name in names:
+        rows = digests.get(name, [])
+        combined = hashlib.sha256("\n".join(
+            f"{k}={d}" for k, d in rows).encode()).hexdigest()[:16]
+        print(f"digests {name}: {len(rows)} batches, combined {combined}",
+              flush=True)
 
 
 def make_batch(ncol, nz, seed, dtype, dev, cold=False):
@@ -157,32 +200,32 @@ def flat(res):
     return out
 
 
-def phase_kernel_vs_plain(dev):
+def phase_kernel_vs_plain(dev, digests):
     from kid_tpu_torch.config import MicroConfig
     from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.micro.fused_step import fused_step, fused_step_ref
     from kid_tpu_torch.tables.cache import get_tables
-    for nz in (120, 130):
+    for nz, dtype in VS_PLAIN:
         for cfg in (MicroConfig(iiwarm=False), MicroConfig(iiwarm=True)):
-            for dtype in (torch.float64, torch.float32):
-                tables = S.device_tables(get_tables(iiwarm=cfg.iiwarm),
-                                         dtype, dev)
-                st, pres, dzq = make_batch(BATCH_NCOL, nz, 0, dtype, dev)
-                pro, idx = S._prologue(st, pres, cfg)
-                tv = S._table_stage(pro, idx, tables, cfg, 10.0)
-                for want_rates in (True, False):
-                    got = fused_step(st, pres, dzq, tv, cfg, 10.0,
+            tables = S.device_tables(get_tables(iiwarm=cfg.iiwarm), dtype,
+                                     dev)
+            st, pres, dzq = make_batch(BATCH_NCOL, nz, 0, dtype, dev)
+            pro, idx = S._prologue(st, pres, cfg)
+            tv = S._table_stage(pro, idx, tables, cfg, 10.0)
+            for want_rates in (True, False):
+                got = fused_step(st, pres, dzq, tv, cfg, 10.0, want_rates)
+                ref = fused_step_ref(st, pres, dzq, tv, cfg, 10.0,
                                      want_rates)
-                    ref = fused_step_ref(st, pres, dzq, tv, cfg, 10.0,
-                                         want_rates)
-                    torch.cuda.synchronize()
-                    noise = 1e-9 if dtype == torch.float64 else 1e-3
-                    worst = equiv_report(flat(got), flat(ref), noise)
-                    print(f"kernel vs plain  nz={nz} "
-                          f"{'warm ' if cfg.iiwarm else 'mixed'} "
-                          f"{str(dtype)[6:]} rates={int(want_rates)}: "
-                          f"worst normalised error {worst:.3e} "
-                          f"(limit {noise:g})", flush=True)
+                torch.cuda.synchronize()
+                noise = 1e-9 if dtype == torch.float64 else 1e-3
+                worst = equiv_report(flat(got), flat(ref), noise)
+                label = (f"nz={nz} {'warm ' if cfg.iiwarm else 'mixed'} "
+                         f"{str(dtype)[6:]} rates={int(want_rates)}")
+                d = record_digest(digests, "fused_step", label, flat(got))
+                print(f"kernel vs plain  {label}: worst normalised error "
+                      f"{worst:.3e} (limit {noise:g}), digest {d}",
+                      flush=True)
+    print_digests(digests, "fused_step")
 
 
 def kid_step_inputs(case, dtype, dev, istep=150):
@@ -220,30 +263,32 @@ def kid_step_inputs(case, dtype, dev, istep=150):
     return st, m, tv, profs
 
 
-def phase_kid_step_vs_plain(dev):
+def phase_kid_step_vs_plain(dev, digests):
     from kid_tpu_torch.driver.cases import MIXED1, WARM1_RECON
     from kid_tpu_torch.micro.fused_kid_step import (fused_kid_step,
                                                     fused_kid_step_ref)
-    for nz in (120, 130):
+    for nz, dtype in VS_PLAIN:
         for base in (MIXED1, WARM1_RECON):
             case = dataclasses.replace(base, nx=BATCH_NCOL, nz=nz)
-            for dtype in (torch.float64, torch.float32):
-                st, m, tv, (w, p, e, r, dz) = kid_step_inputs(case, dtype,
-                                                              dev)
-                noise = 1e-9 if dtype == torch.float64 else 1e-3
-                for want_rates in (True, False):
-                    args = (st, w, m, tv, p, e, r, dz, case.micro, case.dt,
-                            want_rates)
-                    got = fused_kid_step(*args)
-                    ref = fused_kid_step_ref(*args)
-                    torch.cuda.synchronize()
-                    worst = equiv_report(flat(got), flat(ref), noise)
-                    print(f"fused_kid_step vs plain  nz={nz} "
-                          f"{'warm ' if case.micro.iiwarm else 'mixed'} "
-                          f"{str(dtype)[6:]} rates={int(want_rates)} "
-                          f"m={m:.4f}: worst normalised error {worst:.3e} "
-                          f"(limit {noise:g}), rain "
-                          f"{float(got[1].rain.sum()):.3e}", flush=True)
+            st, m, tv, (w, p, e, r, dz) = kid_step_inputs(case, dtype, dev)
+            noise = 1e-9 if dtype == torch.float64 else 1e-3
+            for want_rates in (True, False):
+                args = (st, w, m, tv, p, e, r, dz, case.micro, case.dt,
+                        want_rates)
+                got = fused_kid_step(*args)
+                ref = fused_kid_step_ref(*args)
+                torch.cuda.synchronize()
+                worst = equiv_report(flat(got), flat(ref), noise)
+                label = (f"nz={nz} "
+                         f"{'warm ' if case.micro.iiwarm else 'mixed'} "
+                         f"{str(dtype)[6:]} rates={int(want_rates)}")
+                d = record_digest(digests, "fused_kid_step", label,
+                                  flat(got))
+                print(f"fused_kid_step vs plain  {label} m={m:.4f}: worst "
+                      f"normalised error {worst:.3e} (limit {noise:g}), "
+                      f"rain {float(got[1].rain.sum()):.3e}, digest {d}",
+                      flush=True)
+    print_digests(digests, "fused_kid_step")
 
 
 def seeded_w(ncol, nz, seed, dtype, dev):
@@ -253,10 +298,12 @@ def seeded_w(ncol, nz, seed, dtype, dev):
                         device=dev)
 
 
-def split_vs_plain(st, pres, dzq, w, cfg, tables, want_rates, noise):
+def split_vs_plain(st, pres, dzq, w, cfg, tables, want_rates, noise,
+                   digests, label):
     """``fused_rates`` and ``fused_post`` against their plain versions;
-    ``fused_post`` gets the plain path's own p8 and lookups.  Returns the
-    two worst normalised errors and the plain p8."""
+    ``fused_post`` gets the plain path's own p8 and lookups.  Records both
+    kernels' digests under ``label``.  Returns the two worst normalised
+    errors and the kernel's p8."""
     from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.micro import split_step as A
     pro, idx = S._prologue(st, pres, cfg)
@@ -269,10 +316,12 @@ def split_vs_plain(st, pres, dzq, w, cfg, tables, want_rates, noise):
     got = A.fused_post(st, pres, dzq, p8, aux, cfg, 10.0, want_rates)
     ref = A.fused_post_ref(st, pres, dzq, p8, aux, cfg, 10.0, want_rates)
     torch.cuda.synchronize()
+    record_digest(digests, "fused_rates", label, p8_k)
+    record_digest(digests, "fused_post", label, flat(got))
     return worst_r, equiv_report(flat(got), flat(ref), noise), p8_k
 
 
-def phase_split_vs_plain(dev):
+def phase_split_vs_plain(dev, digests):
     from kid_tpu_torch.config import MicroConfig
     from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.tables.cache import get_tables
@@ -285,21 +334,24 @@ def phase_split_vs_plain(dev):
                 w = seeded_w(BATCH_NCOL, nz, 0, dtype, dev)
                 noise = 1e-9 if dtype == torch.float64 else 1e-3
                 for want_rates in (True, False):
+                    label = (f"nz={nz} {'warm ' if warm else 'mixed'} "
+                             f"{str(dtype)[6:]} rates={int(want_rates)}")
                     wr, wp, _ = split_vs_plain(st, pres, dzq, w, cfg, tables,
-                                               want_rates, noise)
-                    print(f"aerosol kernels vs plain  nz={nz} "
-                          f"{'warm ' if warm else 'mixed'} "
-                          f"{str(dtype)[6:]} rates={int(want_rates)}: "
-                          f"worst normalised error fused_rates {wr:.3e}, "
-                          f"fused_post {wp:.3e} (limit {noise:g})",
-                          flush=True)
+                                               want_rates, noise, digests,
+                                               label)
+                    print(f"aerosol kernels vs plain  {label}: worst "
+                          f"normalised error fused_rates {wr:.3e}, "
+                          f"fused_post {wp:.3e} (limit {noise:g}), digests "
+                          f"{digests['fused_rates'][-1][1]} "
+                          f"{digests['fused_post'][-1][1]}", flush=True)
     # a cold batch: DeMott nucleation and the aerosol tendencies must fire
     cfg = MicroConfig(iiwarm=False, is_aerosol_aware=True)
     tables = S.device_tables(get_tables(iiwarm=False), torch.float64, dev)
     st, pres, dzq = make_batch(BATCH_NCOL, 120, 1, torch.float64, dev,
                                cold=True)
     w = seeded_w(BATCH_NCOL, 120, 1, torch.float64, dev)
-    wr, wp, p8 = split_vs_plain(st, pres, dzq, w, cfg, tables, True, 1e-9)
+    wr, wp, p8 = split_vs_plain(st, pres, dzq, w, cfg, tables, True, 1e-9,
+                                digests, "cold nz=120 mixed float64 rates=1")
     counts = {k: int(v.sum()) for k, v in (
         ("pri_inu>0", p8["pri_inu"] > 0), ("pni_inu>0", p8["pni_inu"] > 0),
         ("nwfaten!=0", p8["nwfaten"] != 0),
@@ -311,6 +363,7 @@ def phase_split_vs_plain(dev):
           + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
     if min(counts.values()) == 0:
         raise AssertionError(f"cold batch: a process did not fire {counts}")
+    print_digests(digests, "fused_rates", "fused_post")
 
 
 class OpCounter(TorchDispatchMode):
@@ -335,6 +388,33 @@ class OpCounter(TorchDispatchMode):
                 if isinstance(t, torch.Tensor):
                     self.ops += t.numel()
         return out
+
+
+def phase_resources():
+    """What the card gives every kernel instantiation at the block sizes
+    of nz 120 and 256.  Returns the main-path float32 instantiation's
+    resources by kernel (mixed phase, nz 120, no rate profiles)."""
+    from kid_tpu_torch.micro import cuda_build
+    main = {}
+    for name in kernels():
+        for nz in (120, 256):
+            for dtype in (torch.float32, torch.float64):
+                for warm in (False, True):
+                    for want_rates in (False, True):
+                        r = cuda_build.resources(name, nz, dtype, warm,
+                                                 want_rates)
+                        warps = r["blocks_per_sm"] * ((nz + 31) // 32)
+                        print(f"resources {name} nz={nz} {str(dtype)[6:]} "
+                              f"{'warm ' if warm else 'mixed'} "
+                              f"rates={int(want_rates)}: {r['regs']} regs, "
+                              f"{r['spill_bytes']} spill bytes, "
+                              f"{r['shared_bytes']} static shared bytes, "
+                              f"{r['blocks_per_sm']} blocks/SM ({warps} "
+                              f"warps/SM)", flush=True)
+                        if (nz, dtype, warm, want_rates) == (
+                                120, torch.float32, False, False):
+                            main[name] = r
+    return main
 
 
 def time_ms(fn, reps):
@@ -456,11 +536,12 @@ def run_main_path(dev, card, case, path_kernels, packers):
 
 
 def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
-                  got_want):
+                  got_want, res):
     """Time ``launch`` (the kernel) and ``plain`` (its plain version) on
     the main path's input ``x`` (a packed tensor, or a tuple of them),
     bound the work, check the two agree under the f32 knife-edge model;
-    returns the kernels-line record."""
+    returns the kernels-line record, with ``res``, the resources of the
+    kernel's main-path instantiation (phase 1)."""
     got, want = got_want()
     worst = equiv_report(got, want, 1e-3)
     max_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
@@ -488,7 +569,8 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
         launches=launches, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)
+        library_ms=None, regs=res["regs"], spill_bytes=res["spill_bytes"],
+        blocks_per_sm=res["blocks_per_sm"])
 
 
 # the def line of each TPU kernel in kid_tpu/micro/pallas_step.py
@@ -496,7 +578,7 @@ REPLACES = {"fused_step": 353, "fused_rates": 202, "fused_post": 266,
             "fused_kid_step": 67}
 
 
-def phase_main_path(dev, card):
+def phase_main_path(dev, card, res):
     import kid_tpu_torch.micro.fused_step as F
     from kid_tpu_torch.driver.cases import MIXED1
     from kid_tpu_torch.micro import solver as S
@@ -523,10 +605,10 @@ def phase_main_path(dev, card):
     return [kernel_record(
         "fused_step", card, x, lambda: F.launch_packed(x, cfg, dt_f, False),
         lambda: F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False),
-        out_bytes, counts["fused_step"], got_want)], step_ms
+        out_bytes, counts["fused_step"], got_want, res["fused_step"])], step_ms
 
 
-def phase_fused_driver_main_path(dev, card, default_ms):
+def phase_fused_driver_main_path(dev, card, default_ms, res):
     import kid_tpu_torch.micro.fused_kid_step as FK
     from kid_tpu_torch.driver.cases import MIXED1
     from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, KidState
@@ -567,10 +649,11 @@ def phase_fused_driver_main_path(dev, card, default_ms):
     return [kernel_record(
         "fused_kid_step", card, (x, prof),
         lambda: FK.launch_kid_packed(x, prof, m, cfg, dt_f, False), plain,
-        out_bytes, counts["fused_kid_step"], got_want)]
+        out_bytes, counts["fused_kid_step"], got_want,
+        res["fused_kid_step"])]
 
 
-def phase_aerosol_main_path(dev, card):
+def phase_aerosol_main_path(dev, card, res):
     import kid_tpu_torch.micro.split_step as A
     from kid_tpu_torch.driver.cases import AEROSOL1D
     from kid_tpu_torch.micro import solver as S
@@ -601,7 +684,7 @@ def phase_aerosol_main_path(dev, card):
         lambda: A.launch_rates_packed(xa, cfg, dt_f, False),
         lambda: A.fused_rates_ref(st_a, xa[12], tv, cfg, dt_f, False),
         len(S.P8_OUT) * ncol * nz * xa.element_size(),
-        counts["fused_rates"], want_a))
+        counts["fused_rates"], want_a, res["fused_rates"]))
 
     # kernel B on its last input
     xb = last["pack_post_inputs"]
@@ -622,7 +705,7 @@ def phase_aerosol_main_path(dev, card):
         lambda: A.fused_post_ref(st_b, xb[12], xb[13], p8, aux, cfg, dt_f,
                                  False),
         (12 * ncol * nz + 4 * ncol) * xb.element_size(),
-        counts["fused_post"], want_b))
+        counts["fused_post"], want_b, res["fused_post"]))
     return records
 
 
@@ -797,12 +880,14 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"kernel build ({', '.join(kernels())}, in parallel): "
           f"{cuda_build.build():.1f} s", flush=True)
-    phase_kernel_vs_plain(dev)
-    phase_split_vs_plain(dev)
-    phase_kid_step_vs_plain(dev)
-    records, default_ms = phase_main_path(dev, card)
-    records += phase_aerosol_main_path(dev, card)
-    records += phase_fused_driver_main_path(dev, card, default_ms)
+    res = phase_resources()
+    digests = {}
+    phase_kernel_vs_plain(dev, digests)
+    phase_split_vs_plain(dev, digests)
+    phase_kid_step_vs_plain(dev, digests)
+    records, default_ms = phase_main_path(dev, card, res)
+    records += phase_aerosol_main_path(dev, card, res)
+    records += phase_fused_driver_main_path(dev, card, default_ms, res)
     phase_end_to_end(dev)
     phase_fused_driver_end_to_end(dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",

@@ -17,18 +17,23 @@
 // per-column precip values come out.  The table-stage channels are built by
 // the caller from its own provisional state, as the reference does.
 //
-// Mapping: one thread block per column, one thread per level, as
-// fused_step.cu.  The column's 12 raw channels are staged in shared memory
-// because the MUSCL face values at level k read levels k-2 .. k+2; each
-// thread computes the fluxes of both faces of its level (the top face of
-// level k is recomputed by level k+1), so no flux is exchanged.  Shared
-// memory: 12 x MAX_NZ values plus Shared<T>, 29.7 KB in float64, inside the
-// 48 KB of static shared memory.
+// Mapping: one thread block per column, one thread per level, with the
+// block sizes, register budget and warp-level helpers of fused_step.cu.
+// The column's 12 raw channels are staged in shared memory (12 x BLOCK
+// values) because the MUSCL face values at level k read levels k-2 ..
+// k+2.  Each level computes the flux of its bottom face only; the flux of
+// its top face, the bottom face of the level above, comes from the next
+// lane by __shfl_down_sync, and lane 31 reads the next warp's lane 0 from
+// a slot after one barrier.  So every face value and its four divisions
+// are computed once, with the same expression as the plain version, and
+// the fluxes are bit for bit those of computing both faces per level.
 //
 // Bound at (ncol, nz) = (8192, 120) f32 without rates: 30 input + 12 output
 // channels of 3.93 MB (+ precip and the profiles) is ~165 MB, >= ~49 us at
-// 3.35 TB/s; bytes bound it.  A first version that aims at being right:
-// float32 and float64, no fast math (-fmad=false).
+// 3.35 TB/s; bytes bound it.  No fast math (-fmad=false).  On an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md): 0.86 ms/launch when each level
+// computed both of its faces at 4 blocks/SM, 0.79 with each face once,
+// 0.67 with the 5-block budget (96 registers, 64 spill bytes).
 
 #include "thompson.cuh"
 
@@ -66,15 +71,19 @@ __device__ __forceinline__ T face_value(const T* s, int j, int nz, T vel) {
   return vel >= (T)0.0 ? q_left : q_right;
 }
 
-template <typename T, bool WARM, bool RATES>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, bool WARM, bool RATES, int BLOCK>
+__global__ void __launch_bounds__(BLOCK,
+                                  min_blocks(kMinBlocks<T, WARM>, BLOCK))
     fused_kid_step_kernel(const T* __restrict__ x, const T* __restrict__ prof,
                           T* __restrict__ y, T* __restrict__ ppt, int ncol,
                           int nz, int l_sediment, double nt_c, double dt,
                           double ifdry, double mmod) {
   __shared__ Shared<T> sh;
-  __shared__ T raw[N_KID][kMaxThreads];
+  __shared__ T raw[N_KID][BLOCK];
+  __shared__ T face[N_KID][kMaxWarps];
+  Vert<T> vx{sh, 0};
   const int col = blockIdx.x;
+  const int lane = lane_id(), warp = warp_id();
   const bool valid = (int)threadIdx.x < nz;
   const int kl = valid ? threadIdx.x : nz - 1;  // padding mirrors the top
   const size_t plane = (size_t)ncol * nz;
@@ -97,15 +106,25 @@ __global__ void __launch_bounds__(kMaxThreads)
   const T f_lo = kl == 0 ? (T)0 : w_lo;
   const T f_hi = kl + 1 == nz ? (T)0 : w_hi;
   const T rd = pr[R_rho0 * np1] * pr[R_dz * np1];
+  // each level computes the tracer flux of its bottom face; its top face
+  // is the bottom face of the level above, from the next lane (lane 31:
+  // from the next warp's lane 0, through shared memory)
+  T flux_lo[N_KID], flux_up[N_KID];
+#pragma unroll
+  for (int c = 0; c < N_KID; ++c) {
+    flux_lo[c] = kl == 0 ? (T)0 : w_lo * face_value(raw[c], kl, nz, w_lo);
+    flux_up[c] = __shfl_down_sync(kFullMask, flux_lo[c], 1);
+    if (lane == 0) face[c][warp] = flux_lo[c];
+  }
+  __syncthreads();
   T prov[N_KID];
 #pragma unroll
   for (int c = 0; c < N_KID; ++c) {
-    const T* s = raw[c];
-    const T q = s[kl];
-    const T flux_lo = kl == 0 ? (T)0 : w_lo * face_value(s, kl, nz, w_lo);
-    const T flux_hi =
-        kl + 1 == nz ? (T)0 : w_hi * face_value(s, kl + 1, nz, w_hi);
-    const T adv = -(flux_hi - flux_lo) / rd;
+    const T q = raw[c][kl];
+    const T flux_hi = kl + 1 == nz ? (T)0
+                      : lane == kWarp - 1 ? face[c][warp + 1]
+                                          : flux_up[c];
+    const T adv = -(flux_hi - flux_lo[c]) / rd;
     const T dvg = q * (f_hi - f_lo) / rd;
     const T ten = adv + dvg;
     prov[c] = q + ten * P.dt;
@@ -123,14 +142,16 @@ __global__ void __launch_bounds__(kMaxThreads)
   const T dzq = pr[R_dz * np1];
 
   Pro<T> p;
-  prologue<T, WARM, false>(s, P, valid, sh, p);
+  prologue<T, WARM, false>(s, P, valid, vx, p);
+  Late<T> l;
+  set_late(l, s, p, dzq);
   P8<T> q;
   T* d = RATES ? y + N_KID * plane + off : nullptr;
   rates<T, WARM, RATES, false>(p, x + N_KID * plane + off, plane, P, valid,
                                q, d);
   if (RATES && valid) d[D_prr_gml * plane] = q.prr_gml;
   Out<T> o;
-  post<T, WARM, false>(s, p, q, (T)0, (T)0, dzq, P, valid, nz, sh, o);
+  post<T, WARM, false>(l, p, q, (T)0, (T)0, P, valid, nz, vx, o);
 
   if (valid) {
     T* n = y + off;
@@ -152,22 +173,42 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// f(the instantiation that a launch of these arguments takes): blocks of
+// up to 128 threads for nz <= 128, of up to 256 above
+template <typename T, int BLOCK, typename F>
+int with_block(int iiwarm, int want_rates, F f) {
+  if (iiwarm)
+    return want_rates ? f(fused_kid_step_kernel<T, true, true, BLOCK>)
+                      : f(fused_kid_step_kernel<T, true, false, BLOCK>);
+  return want_rates ? f(fused_kid_step_kernel<T, false, true, BLOCK>)
+                    : f(fused_kid_step_kernel<T, false, false, BLOCK>);
+}
+template <typename T, typename F>
+int with_kernel(int nz, int iiwarm, int want_rates, F f) {
+  return nz <= 128 ? with_block<T, 128>(iiwarm, want_rates, f)
+                   : with_block<T, kMaxThreads>(iiwarm, want_rates, f);
+}
+
 template <typename T>
 int launch(const T* x, const T* prof, T* y, T* ppt, int ncol, int nz,
            int iiwarm, int want_rates, int l_sediment, double nt_c, double dt,
            double ifdry, double mmod, void* stream) {
-  auto go = [&](auto kernel) {
+  return with_kernel<T>(nz, iiwarm, want_rates, [&](auto kernel) {
     return launch_columns(kernel, ncol, nz, stream, x, prof, y, ppt, ncol,
                           nz, l_sediment, nt_c, dt, ifdry, mmod);
-  };
-  if (iiwarm)
-    return want_rates ? go(fused_kid_step_kernel<T, true, true>)
-                      : go(fused_kid_step_kernel<T, true, false>);
-  return want_rates ? go(fused_kid_step_kernel<T, false, true>)
-                    : go(fused_kid_step_kernel<T, false, false>);
+  });
 }
 
 }  // namespace
+
+// the resources of the instantiation launched for (nz, dtype, iiwarm,
+// want_rates): see kernel_resources in thompson.cuh
+extern "C" int kid_fused_kid_step_resources(int nz, int f64, int iiwarm,
+                                            int want_rates, int* row) {
+  auto f = [&](auto kernel) { return kernel_resources(kernel, nz, row); };
+  return f64 ? with_kernel<double>(nz, iiwarm, want_rates, f)
+             : with_kernel<float>(nz, iiwarm, want_rates, f);
+}
 
 // C interface, loaded with ctypes by kid_tpu_torch/micro/fused_kid_step.py.
 // x: (12 + ntv, ncol, nz), prof: (5, nz + 1), y: (12 [+36], ncol, nz),

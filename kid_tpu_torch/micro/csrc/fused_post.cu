@@ -31,6 +31,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                       T* __restrict__ ppt, int ncol, int nz, int l_sediment,
                       double nt_c, double dt, double ifdry) {
   __shared__ Shared<T> sh;
+  Vert<T> vx{sh, 0};
   const int col = blockIdx.x;
   const bool valid = (int)threadIdx.x < nz;
   const int kl = valid ? threadIdx.x : nz - 1;  // padding mirrors the top
@@ -56,8 +57,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   Pro<T> p;
   prologue_cell<T, WARM, true>(s, P, p);
+  Late<T> l;
+  set_late(l, s, p, dzq);
   Out<T> o;
-  post<T, WARM, true>(s, p, q, xnc_act, wev, dzq, P, valid, nz, sh, o);
+  post<T, WARM, true>(l, p, q, xnc_act, wev, P, valid, nz, vx, o);
   store_out(o, y, ppt, plane, off, ncol, col, valid);
   if (RATES && valid) {
     T* d = y + N_STATE * plane + off;
@@ -67,22 +70,36 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// f(the instantiation that a launch of these arguments takes)
+template <typename T, typename F>
+int with_kernel(int iiwarm, int want_rates, F f) {
+  if (iiwarm)
+    return want_rates ? f(fused_post_kernel<T, true, true>)
+                      : f(fused_post_kernel<T, true, false>);
+  return want_rates ? f(fused_post_kernel<T, false, true>)
+                    : f(fused_post_kernel<T, false, false>);
+}
+
 template <typename T>
 int launch(const T* x, T* y, T* ppt, int ncol, int nz, int iiwarm,
            int want_rates, int l_sediment, double nt_c, double dt,
            double ifdry, void* stream) {
-  auto go = [&](auto kernel) {
+  return with_kernel<T>(iiwarm, want_rates, [&](auto kernel) {
     return launch_columns(kernel, ncol, nz, stream, x, y, ppt, ncol, nz,
                           l_sediment, nt_c, dt, ifdry);
-  };
-  if (iiwarm)
-    return want_rates ? go(fused_post_kernel<T, true, true>)
-                      : go(fused_post_kernel<T, true, false>);
-  return want_rates ? go(fused_post_kernel<T, false, true>)
-                    : go(fused_post_kernel<T, false, false>);
+  });
 }
 
 }  // namespace
+
+// the resources of the instantiation launched for (nz, dtype, iiwarm,
+// want_rates): see kernel_resources in thompson.cuh
+extern "C" int kid_fused_post_resources(int nz, int f64, int iiwarm,
+                                        int want_rates, int* row) {
+  auto f = [&](auto kernel) { return kernel_resources(kernel, nz, row); };
+  return f64 ? with_kernel<double>(iiwarm, want_rates, f)
+             : with_kernel<float>(iiwarm, want_rates, f);
+}
 
 // C interface, loaded with ctypes by kid_tpu_torch/micro/split_step.py.
 // x: (31, ncol, nz), y: (12 [+3], ncol, nz), ppt: (4, ncol), all

@@ -30,6 +30,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                        int nz, double nt_c, double dt, double ifdry,
                        int dusty, int homog) {
   __shared__ Shared<T> sh;
+  Vert<T> vx{sh, 0};
   const int col = blockIdx.x;
   const bool valid = (int)threadIdx.x < nz;
   const int kl = valid ? threadIdx.x : nz - 1;  // padding mirrors the top
@@ -40,7 +41,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   // input channels: ColumnState, pres, tv_keys(cfg)
   const Cell<T> s = load_cell(x, plane, off);
   Pro<T> p;
-  prologue<T, WARM, true>(s, P, valid, sh, p);
+  prologue<T, WARM, true>(s, P, valid, vx, p);
   P8<T> q;
   T* d = RATES ? y + N_P8 * plane + off : nullptr;
   rates<T, WARM, RATES, true>(p, x + (I_pres + 1) * plane + off, plane, P,
@@ -58,22 +59,36 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// f(the instantiation that a launch of these arguments takes)
+template <typename T, typename F>
+int with_kernel(int iiwarm, int want_rates, F f) {
+  if (iiwarm)
+    return want_rates ? f(fused_rates_kernel<T, true, true>)
+                      : f(fused_rates_kernel<T, true, false>);
+  return want_rates ? f(fused_rates_kernel<T, false, true>)
+                    : f(fused_rates_kernel<T, false, false>);
+}
+
 template <typename T>
 int launch(const T* x, T* y, int ncol, int nz, int iiwarm, int want_rates,
            double nt_c, double dt, double ifdry, int dusty, int homog,
            void* stream) {
-  auto go = [&](auto kernel) {
+  return with_kernel<T>(iiwarm, want_rates, [&](auto kernel) {
     return launch_columns(kernel, ncol, nz, stream, x, y, ncol, nz, nt_c, dt,
                           ifdry, dusty, homog);
-  };
-  if (iiwarm)
-    return want_rates ? go(fused_rates_kernel<T, true, true>)
-                      : go(fused_rates_kernel<T, true, false>);
-  return want_rates ? go(fused_rates_kernel<T, false, true>)
-                    : go(fused_rates_kernel<T, false, false>);
+  });
 }
 
 }  // namespace
+
+// the resources of the instantiation launched for (nz, dtype, iiwarm,
+// want_rates): see kernel_resources in thompson.cuh
+extern "C" int kid_fused_rates_resources(int nz, int f64, int iiwarm,
+                                         int want_rates, int* row) {
+  auto f = [&](auto kernel) { return kernel_resources(kernel, nz, row); };
+  return f64 ? with_kernel<double>(iiwarm, want_rates, f)
+             : with_kernel<float>(iiwarm, want_rates, f);
+}
 
 // C interface, loaded with ctypes by kid_tpu_torch/micro/split_step.py.
 // x: (13 + ntv, ncol, nz), y: (15 [+33], ncol, nz), both contiguous on the

@@ -17,13 +17,34 @@
 // non-aerosol kernel's, bit for bit.
 //
 // Mapping (every kernel): one thread block per column, one thread per
-// level (blockDim = nz rounded up to 32); padding threads mirror the top
-// level and store nothing.  Elementwise phases run per thread in
-// registers; the vertical structures go through shared memory: the
-// graupel-N0 suffix minimum and the fall-speed fill-down are log-doubling
-// scans, k0/ksed/nstep are block max-reductions, and each sedimentation
-// substep exchanges the flux of the level above.  Each column runs its own
-// substep count.
+// level (blockDim = nz rounded up to 32, so at most 8 warps); padding
+// threads mirror the top level and store nothing.  Elementwise phases run
+// per thread in registers.  The vertical structures are warp-level: the
+// graupel-N0 suffix minimum and the fall-speed fill-down scan inside each
+// warp with __shfl_down_sync (5 steps, no barrier) and then combine with
+// the totals of the warps above (one barrier); k0/ksed/nstep are
+// __reduce_max_sync per warp and a max over the warps' slots (one
+// barrier); each sedimentation substep takes the flux of the level above
+// from the next lane, lane 31 from the next warp through a slot (one
+// barrier).  The slots are double-buffered (Vert), so no exchange needs a
+// second barrier: a mixed-phase column passes 2 + 2 + 6 + 8 = 18 barriers
+// outside the substeps and one per substep, where the log-doubling scans
+// in shared memory before took some 150 and two per substep.  Each
+// column runs its own substep count.  Every helper only selects, takes a
+// NaN-propagating min/max or copies, so the results are bit for bit those
+// of the earlier layout (tests/test_torch_vertical.py models both).
+//
+// Block size and registers: fused_step.cu and fused_kid_step.cu are
+// instantiated per block size (128 threads for nz <= 128, 256 above) with
+// a register budget of MIN_BLOCKS blocks of 128 threads per SM (f32 mixed
+// 5: 96 registers, 20 warps/SM); fused_rates.cu and fused_post.cu keep
+// one instantiation up to MAX_NZ threads and the compiler's own budget.
+// Nothing but the exchange slots (and fused_kid_step's raw column) lives
+// in shared memory: keeping post()'s Late values there instead of in
+// registers was slower in f32.  Bytes bound every kernel at ~0.05 ms on
+// (8192, 120) f32; on an NVIDIA H100 80GB HBM3 at 700 W they take 0.54
+// (fused_step), 0.67 (fused_kid_step), 0.46 (fused_rates) and 0.25 ms
+// (fused_post) (PERF.md).
 
 #pragma once
 
@@ -266,70 +287,108 @@ __device__ __forceinline__ T ice_koop(T temp, T qv, T qvs, T naero, T dt) {
 
 // ---------------------------------------------------------------------------
 // block-wide vertical helpers (every thread of the block must call them)
+//
+// Level k is thread k: lane k % 32 of warp k / 32.  Inside a warp the
+// levels above arrive by __shfl_down_sync; across warps each warp puts one
+// value in a shared slot.  Every exchange writes one half of the slots,
+// waits at one barrier and reads; the next exchange takes the other half,
+// so the slots are never written while a slower warp may still read them
+// and no second barrier is needed.
+
+constexpr int kWarp = 32;
+constexpr int kMaxWarps = kMaxThreads / kWarp;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x % kWarp; }
+__device__ __forceinline__ int warp_id() { return threadIdx.x / kWarp; }
+__device__ __forceinline__ int n_warps() { return blockDim.x / kWarp; }
 
 template <typename T> struct Shared {
-  T a[kMaxThreads];
-  T b[kMaxThreads];
-  int f[kMaxThreads];
-  int red;
+  T v[2][kMaxWarps];
+  T w[2][kMaxWarps];
+  int f[2][kMaxWarps];
 };
 
-// max over the block of a non-negative int
+// a thread's handle on its block's slots and the half that the next
+// exchange takes (the same in every thread: all make the same exchanges)
+template <typename T> struct Vert {
+  Shared<T>& sh;
+  int half;
+  __device__ __forceinline__ int next() {
+    const int h = half;
+    half ^= 1;
+    return h;
+  }
+};
+
+// max over the block of a non-negative int: a max per warp, one slot per
+// warp, one barrier
 template <typename T>
-__device__ __forceinline__ int block_max(int v, Shared<T>& sh) {
-  if (threadIdx.x == 0) sh.red = 0;
+__device__ __forceinline__ int block_max(int v, Vert<T>& vx) {
+  const int m = __reduce_max_sync(kFullMask, v);
+  int* s = vx.sh.f[vx.next()];
+  if (lane_id() == 0) s[warp_id()] = m;
   __syncthreads();
-  if (v > 0) atomicMax(&sh.red, v);
-  __syncthreads();
-  int r = sh.red;
-  __syncthreads();
+  int r = 0;
+  for (int w = 0; w < n_warps(); ++w) r = max(r, s[w]);
   return r;
 }
 
-// suffix (top-down running) minimum over the valid levels
+// suffix (top-down running) minimum over the valid levels.  mn(lower,
+// upper) selects exactly (the lowest NaN, else the highest level among
+// the equal minima), so any grouping that combines a lower range with the
+// range above it gives the same bits: a 5-step scan inside each warp, then
+// each warp's total above, combined after one barrier.
 template <typename T>
-__device__ __forceinline__ T suffix_min(T v, bool valid, Shared<T>& sh) {
-  const int k = threadIdx.x;
-  const int n = blockDim.x;
+__device__ __forceinline__ T suffix_min(T v, bool valid, Vert<T>& vx) {
+  const int lane = lane_id(), warp = warp_id();
   const T inf = (T)INFINITY;
   T cur = valid ? v : inf;
-  sh.a[k] = cur;
-  __syncthreads();
-  for (int off = 1; off < n; off <<= 1) {
-    T o = (k + off < n) ? sh.a[k + off] : inf;
-    __syncthreads();
-    cur = mn(cur, o);
-    sh.a[k] = cur;
-    __syncthreads();
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const T o = __shfl_down_sync(kFullMask, cur, off);
+    cur = mn(cur, lane + off < kWarp ? o : inf);
   }
-  return cur;
+  T* s = vx.sh.v[vx.next()];
+  if (lane == 0) s[warp] = cur;
+  __syncthreads();
+  T above = inf;
+  for (int w = n_warps() - 1; w > warp; --w) above = mn(s[w], above);
+  return mn(cur, above);
 }
 
-// first valid value at or above each level, 0 where none (_fill_down)
+// first valid value at or above each level, 0 where none (_fill_down):
+// the (value, flag) pair of the lowest flagged level, scanned as
+// suffix_min is
 template <typename T>
-__device__ __forceinline__ T fill_down(T v, bool flag, Shared<T>& sh) {
-  const int k = threadIdx.x;
-  const int n = blockDim.x;
+__device__ __forceinline__ T fill_down(T v, bool flag, Vert<T>& vx) {
+  const int lane = lane_id(), warp = warp_id();
   T cv = v;
   int cf = flag ? 1 : 0;
-  sh.a[k] = cv;
-  sh.f[k] = cf;
-  __syncthreads();
-  for (int off = 1; off < n; off <<= 1) {
-    T ov = (T)0;
-    int of = 0;
-    if (k + off < n) {
-      ov = sh.a[k + off];
-      of = sh.f[k + off];
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    T ov = __shfl_down_sync(kFullMask, cv, off);
+    int of = __shfl_down_sync(kFullMask, cf, off);
+    if (lane + off >= kWarp) {
+      ov = (T)0;
+      of = 0;
     }
-    __syncthreads();
     if (!cf) {
       cv = ov;
       cf = of;
     }
-    sh.a[k] = cv;
-    sh.f[k] = cf;
-    __syncthreads();
+  }
+  const int h = vx.next();
+  if (lane == 0) {
+    vx.sh.v[h][warp] = cv;
+    vx.sh.f[h][warp] = cf;
+  }
+  __syncthreads();
+  for (int w = warp + 1; !cf && w < n_warps(); ++w) {
+    if (vx.sh.f[h][w]) {
+      cv = vx.sh.v[h][w];
+      cf = 1;
+    }
   }
   return cf ? cv : (T)0;
 }
@@ -337,10 +396,10 @@ __device__ __forceinline__ T fill_down(T v, bool flag, Shared<T>& sh) {
 // graupel N0 / slope with the top-down running minimum (_graupel_psd)
 template <typename T>
 __device__ __forceinline__ void graupel_psd(T rg, T temp, bool l_qr, T mvd_r,
-                                            bool valid, Shared<T>& sh,
+                                            bool valid, Vert<T>& vx,
                                             T& ilamg, T& n0_g) {
   const int k = threadIdx.x;
-  const int k0 = block_max((valid && temp >= (T)270.65) ? k : 0, sh);
+  const int k0 = block_max((valid && temp >= (T)270.65) ? k : 0, vx);
   T xslw1 = (k > k0 && l_qr && mvd_r > (T)100.0e-6)
                 ? (T)4.01 + log10_(mx(mvd_r, (T)1e-12))
                 : (T)0.01;
@@ -350,29 +409,34 @@ __device__ __forceinline__ void graupel_psd(T rg, T temp, bool l_qr, T mvd_r,
                                        (T)0.25 * ygra1) +
                                   (T)30.0 + (T)10.0 * ygra1));
   T n0_exp = clampT(exp10_(zans1), (T)GONV_MIN, (T)GONV_MAX);
-  n0_exp = suffix_min(n0_exp, valid, sh);
+  n0_exp = suffix_min(n0_exp, valid, vx);
   T lam_exp = powc(n0_exp * (T)AM_G * (T)CGG_1 / rg, OGE1);
   T lamg = lam_exp * (T)LAMG_FAC;
   ilamg = (T)1 / lamg;
   n0_g = n0_exp / ((T)CGG_2 * lam_exp) * powc(lamg, CGE_2);
 }
 
-// one species' substepped upwind sweep (solver._cfl + solver._sweep)
+// one species' substepped upwind sweep (solver._cfl + solver._sweep).
+// Each substep takes the flux of the level above from the next lane, and
+// lane 31 from the next warp's lane 0 through a slot: one barrier a
+// substep.  The top level's inflow is its own flux times 0, as the plain
+// version's zero-padded shift (0, or NaN for a non-finite flux).
 template <typename T, bool NUM>
 __device__ __forceinline__ void sweep(T vt_cfl, T vts_mass, T vts_num,
                                       T& ten_m, T& ten_n, T& dm, T& dn,
                                       T floor_m, T floor_n, T gate, T orho,
                                       T odzq, T dt, bool valid, int nz,
-                                      Shared<T>& sh, T& ppt) {
+                                      Vert<T>& vx, T& ppt) {
   const int k = threadIdx.x;
+  const int lane = lane_id(), warp = warp_id();
   const int top = nz - 1;
   const bool vt_mask = valid && vt_cfl > (T)1.0e-3;
-  int ksed = block_max(vt_mask ? k : 0, sh);
+  int ksed = block_max(vt_mask ? k : 0, vx);
   if (ksed == top) ksed = top - 1;
   const int nstep = block_max(
       vt_mask ? trunc_int(dt * vt_cfl * odzq + (T)1.0, (T)0, (T)1073741824.0)
               : 0,
-      sh);
+      vx);
   const int n_loop = nstep > 1 ? nstep : 1;
   const T onstep = (T)1 / (T)n_loop;
   const bool upd = (k == top) || (k <= ksed);
@@ -380,13 +444,21 @@ __device__ __forceinline__ void sweep(T vt_cfl, T vts_mass, T vts_num,
   for (int n = 0; n < n_loop; ++n) {
     T sed_m = vts_mass * dm * gate;
     T sed_n = NUM ? vts_num * dn * gate : (T)0;
-    sh.a[k] = sed_m;
-    if (NUM) sh.b[k] = sed_n;
+    T up_m = __shfl_down_sync(kFullMask, sed_m, 1);
+    T up_n = NUM ? __shfl_down_sync(kFullMask, sed_n, 1) : (T)0;
+    const int h = vx.next();
+    if (lane == 0) {
+      vx.sh.v[h][warp] = sed_m;
+      if (NUM) vx.sh.w[h][warp] = sed_n;
+    }
     __syncthreads();
-    T up_m = (k + 1 < nz) ? sh.a[k + 1] : sh.a[nz - 1] * (T)0;
-    T up_n = (T)0;
-    if (NUM) up_n = (k + 1 < nz) ? sh.b[k + 1] : sh.b[nz - 1] * (T)0;
-    __syncthreads();
+    if (k + 1 >= nz) {
+      up_m = sed_m * (T)0;
+      if (NUM) up_n = sed_n * (T)0;
+    } else if (lane == kWarp - 1) {
+      up_m = vx.sh.v[h][warp + 1];
+      if (NUM) up_n = vx.sh.w[h][warp + 1];
+    }
     T dflx_m = up_m - sed_m;
     if (upd) {
       ten_m = ten_m + dflx_m * odzq * onstep * orho;
@@ -681,12 +753,12 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
 // phases 2-7 (solver._prologue); every thread of the block must call it
 template <typename T, bool WARM, bool AERO>
 __device__ __forceinline__ void prologue(const Cell<T>& s, const Params<T>& P,
-                                         bool valid, Shared<T>& sh,
+                                         bool valid, Vert<T>& vx,
                                          Pro<T>& p) {
   prologue_cell<T, WARM, AERO>(s, P, p);
   // phase 6: graupel PSD with the running-minimum N0 (f90:1633-1656)
   if (!WARM)
-    graupel_psd(p.rg0, p.temp0, p.l_qr0, p.mvd_r_ph2, valid, sh, p.ilamg,
+    graupel_psd(p.rg0, p.temp0, p.l_qr0, p.mvd_r_ph2, valid, vx, p.ilamg,
                 p.n0_g);
 }
 
@@ -1201,6 +1273,23 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
   o.prr_gml = prr_gml;
 }
 
+// what post() reads of the raw cell, of phase 2's zeroed state and the
+// level depth, in one struct (set right after the prologue); the card
+// ran fused_kid_step 1.4% and f64 fused_step 4% faster with it than with
+// the cell, the state and dzq as separate arguments (PERF.md)
+template <typename T> struct Late {
+  T t1d, qv1d, pres, nwfa1d, nifa1d, dzq;
+  T qc1d, nc1d, qi1d, ni1d, qr1d, nr1d, qs1d, qg1d;
+};
+template <typename T>
+__device__ __forceinline__ void set_late(Late<T>& l, const Cell<T>& s,
+                                         const Pro<T>& p, T dzq) {
+  l.t1d = s.t1d; l.qv1d = s.qv1d; l.pres = s.pres;
+  l.nwfa1d = s.nwfa1d; l.nifa1d = s.nifa1d; l.dzq = dzq;
+  l.qc1d = p.qc1d; l.nc1d = p.nc1d; l.qi1d = p.qi1d; l.ni1d = p.ni1d;
+  l.qr1d = p.qr1d; l.nr1d = p.nr1d; l.qs1d = p.qs1d; l.qg1d = p.qg1d;
+}
+
 // what phases 12-20 return for one cell
 template <typename T> struct Out {
   T t, qv, qc, qi, qr, qs, qg, ni, nr, nc, nwfa, nifa;
@@ -1208,22 +1297,22 @@ template <typename T> struct Out {
   T prv_rev, pnr_rev;
 };
 
-// phases 12-20 (solver._post_rates) from the raw cell ``s``, the
-// prologue's zeroed state and snow moments ``p`` (and its graupel PSD,
-// recomputed here for mixed phase), the p8 tendencies ``q`` and, with
-// AERO, the phase-14 lookups ``xnc_act`` and ``wev``.  Every thread of
-// the block must call it.
+// phases 12-20 (solver._post_rates) from the raw cell, the zeroed state
+// and the level depth ``l``, the prologue's snow moments ``p`` (and its
+// graupel PSD, recomputed here for mixed phase), the p8 tendencies ``q``
+// and, with AERO, the phase-14 lookups ``xnc_act`` and ``wev``.  Every
+// thread of the block must call it.
 template <typename T, bool WARM, bool AERO>
-__device__ __forceinline__ void post(const Cell<T>& s, const Pro<T>& p,
-                                     P8<T> q, T xnc_act_in, T wev, T dzq,
+__device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
+                                     P8<T> q, T xnc_act_in, T wev,
                                      const Params<T>& P, bool valid, int nz,
-                                     Shared<T>& sh, Out<T>& out) {
+                                     Vert<T>& vx, Out<T>& out) {
   const T dt = P.dt, odt = P.odt, odts = P.odts, nt_c = P.nt_c;
   const T ifdry = P.ifdry;
-  const T t1d = s.t1d, qv1d = s.qv1d, pres = s.pres;
-  const T nwfa1d = s.nwfa1d, nifa1d = s.nifa1d;
-  const T qc1d = p.qc1d, nc1d = p.nc1d, qi1d = p.qi1d, ni1d = p.ni1d;
-  const T qr1d = p.qr1d, nr1d = p.nr1d, qs1d = p.qs1d, qg1d = p.qg1d;
+  const T &t1d = l.t1d, &qv1d = l.qv1d, &pres = l.pres;
+  const T &nwfa1d = l.nwfa1d, &nifa1d = l.nifa1d, &dzq = l.dzq;
+  const T &qc1d = l.qc1d, &nc1d = l.nc1d, &qi1d = l.qi1d, &ni1d = l.ni1d;
+  const T &qr1d = l.qr1d, &nr1d = l.nr1d, &qs1d = l.qs1d, &qg1d = l.qg1d;
   T smob = p.smob, smoc = p.smoc, ilamg = p.ilamg, n0_g = p.n0_g;
   T tten = q.tten, qvten = q.qvten, qcten = q.qcten, ncten = q.ncten;
   T qiten = q.qiten, niten = q.niten, qrten = q.qrten, nrten = q.nrten;
@@ -1282,7 +1371,7 @@ __device__ __forceinline__ void post(const Cell<T>& s, const Pro<T>& p,
     T sm_c = l_qs2 ? field_moment(lg, tc0, FMC_M, FMC_M3) : (T)0;
     smob = l_qs2 ? sm_b : smob;
     smoc = l_qs2 ? sm_c : smoc;
-    graupel_psd(rg2, temp2, l_qr2, mvd_r, valid, sh, ilamg, n0_g);
+    graupel_psd(rg2, temp2, l_qr2, mvd_r, valid, vx, ilamg, n0_g);
   }
   T ilamr2, n0_r2;
   {
@@ -1412,11 +1501,11 @@ __device__ __forceinline__ void post(const Cell<T>& s, const Pro<T>& p,
               powc(lamr_s + (T)FV_R, -CRE_6);
     T vtr_n = rhof3 * (T)AV_R * (T)CRG_7 / (T)CRG_12 *
               powc(lamr_s, CRE_12) * powc(lamr_s + (T)FV_R, -CRE_7);
-    vtrk = fill_down(vtr_m, valid_r, sh);
-    T vtnrk = fill_down(vtr_n, valid_r, sh);
+    vtrk = fill_down(vtr_m, valid_r, vx);
+    T vtnrk = fill_down(vtr_n, valid_r, vx);
     T vmax_r = mx(vtrk, vtnrk);
     sweep<T, true>(vmax_r, vtrk, vtnrk, qrten, nrten, rr2, nr2, (T)R1,
-                   (T)R2, (T)1, orho3, odzq, dt, valid, nz, sh, pptrain);
+                   (T)R2, (T)1, orho3, odzq, dt, valid, nz, vx, pptrain);
   }
   if (!WARM) {
     const T gate = P.l_sediment ? (T)1 : (T)0;
@@ -1426,10 +1515,10 @@ __device__ __forceinline__ void post(const Cell<T>& s, const Pro<T>& p,
       T ilami2 = (T)1 / lami;
       T vti_m = rhof3 * (T)AV_I * (T)CIG_3 * (T)OIG2 * powc(ilami2, BV_I);
       T vti_n = rhof3 * (T)AV_I * (T)CIG_6 / (T)CIG_7 * powc(ilami2, BV_I);
-      T vtik = fill_down(vti_m, valid_i, sh);
-      T vtnik = fill_down(vti_n, valid_i, sh);
+      T vtik = fill_down(vti_m, valid_i, vx);
+      T vtnik = fill_down(vti_n, valid_i, vx);
       sweep<T, true>(vtik, vtik, vtnik, qiten, niten, ri2, ni2, (T)R1,
-                     (T)R2, gate, orho3, odzq, dt, valid, nz, sh, pptice);
+                     (T)R2, gate, orho3, odzq, dt, valid, nz, vx, pptice);
     }
     {
       const bool valid_s = valid && rs2 > (T)R1;
@@ -1447,19 +1536,19 @@ __device__ __forceinline__ void post(const Cell<T>& s, const Pro<T>& p,
       T vts_melt = mx(vts * vts_boost,
                       vts * ((vtrk - vts * vts_boost) / (temp2 - (T)T_0)));
       T vts_eff = temp2 > (T)(T_0 + 0.1) ? vts_melt : vts * vts_boost;
-      T vtsk = fill_down(vts_eff, valid_s, sh);
+      T vtsk = fill_down(vts_eff, valid_s, vx);
       T dummy_t = 0, dummy_n = 0;
       sweep<T, false>(vtsk, vtsk, (T)0, qsten, dummy_t, rs2, dummy_n, (T)R1,
-                      (T)R1, gate, orho3, odzq, dt, valid, nz, sh, pptsnow);
+                      (T)R1, gate, orho3, odzq, dt, valid, nz, vx, pptsnow);
     }
     {
       const bool valid_g = valid && rg2 > (T)R1;
       T vtg = rhof3 * (T)AV_G * (T)CGG_6 * (T)OGG3 * powc(ilamg, BV_G);
       T vtg_eff = temp2 > (T)T_0 ? mx(vtg, vtrk) : vtg;
-      T vtgk = fill_down(vtg_eff, valid_g, sh);
+      T vtgk = fill_down(vtg_eff, valid_g, vx);
       T dummy_t = 0, dummy_n = 0;
       sweep<T, false>(vtgk, vtgk, (T)0, qgten, dummy_t, rg2, dummy_n, (T)R1,
-                      (T)R1, gate, orho3, odzq, dt, valid, nz, sh, pptgraul);
+                      (T)R1, gate, orho3, odzq, dt, valid, nz, vx, pptgraul);
     }
   }
 
@@ -1578,6 +1667,39 @@ __device__ __forceinline__ void store_out(const Out<T>& o, T* __restrict__ y,
   }
 }
 
+// threads of a column's block: nz rounded up to whole warps
+inline int block_threads(int nz) {
+  return (nz + 31) / 32 * 32;
+}
+
+// The register budget of fused_step.cu and fused_kid_step.cu: how many
+// blocks of 128 threads must fit on an SM, by dtype and warm/mixed.
+// Chosen on the card (PERF.md); kernel_budget.py rebuilds with -D to time
+// others.
+#ifndef MIN_BLOCKS_F32_MIXED
+#define MIN_BLOCKS_F32_MIXED 5
+#endif
+#ifndef MIN_BLOCKS_F32_WARM
+#define MIN_BLOCKS_F32_WARM 8
+#endif
+#ifndef MIN_BLOCKS_F64_MIXED
+#define MIN_BLOCKS_F64_MIXED 3
+#endif
+#ifndef MIN_BLOCKS_F64_WARM
+#define MIN_BLOCKS_F64_WARM 4
+#endif
+template <typename T, bool WARM>
+constexpr int kMinBlocks =
+    sizeof(T) == 4 ? (WARM ? MIN_BLOCKS_F32_WARM : MIN_BLOCKS_F32_MIXED)
+                   : (WARM ? MIN_BLOCKS_F64_WARM : MIN_BLOCKS_F64_MIXED);
+
+// the second argument of __launch_bounds__(block, ...) for a kernel that
+// must fit ``per128`` blocks of 128 threads on an SM: the same register
+// budget per thread at either block size
+__host__ __device__ constexpr int min_blocks(int per128, int block) {
+  return per128 * 128 / block > 1 ? per128 * 128 / block : 1;
+}
+
 // launch a kernel instantiation on one block per column; returns the
 // cudaError_t of the launch
 template <typename Kernel, typename... Args>
@@ -1585,9 +1707,28 @@ int launch_columns(Kernel kernel, int ncol, int nz, void* stream,
                    Args... args) {
   if (nz < 2 || nz > kMaxThreads || ncol < 1)
     return (int)cudaErrorInvalidValue;
-  const int threads = (nz + 31) / 32 * 32;
-  kernel<<<dim3(ncol), dim3(threads), 0, (cudaStream_t)stream>>>(args...);
+  kernel<<<dim3(ncol), dim3(block_threads(nz)), 0, (cudaStream_t)stream>>>(
+      args...);
   return (int)cudaGetLastError();
+}
+
+// what the card gives a kernel instantiation launched for nz levels: row =
+// {registers per thread, local (spill) bytes per thread, static shared
+// bytes per block, active blocks per SM}; returns the cudaError_t
+template <typename Kernel>
+int kernel_resources(Kernel kernel, int nz, int* row) {
+  if (nz < 2 || nz > kMaxThreads) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, (const void*)kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    block_threads(nz), 0);
+  row[0] = a.numRegs;
+  row[1] = (int)a.localSizeBytes;
+  row[2] = (int)a.sharedSizeBytes;
+  row[3] = blocks;
+  return (int)e;
 }
 
 }  // namespace

@@ -208,6 +208,24 @@ def kernel_function(stem: str, dtype, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def resources(stem: str, nz: int, dtype, iiwarm: bool,
+              want_rates: bool) -> dict:
+    """What the card gives the instantiation of ``csrc/<stem>.cu`` that a
+    launch at ``nz`` levels takes: registers per thread, local (spill)
+    bytes per thread, static shared bytes per block and active blocks per
+    SM at its block size (``kid_<stem>_resources``)."""
+    fn = getattr(LIBRARIES.get(stem), f"kid_{stem}_resources")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    row = (ctypes.c_int * 4)()
+    err = fn(nz, int(dtype == torch.float64), int(iiwarm), int(want_rates),
+             ctypes.addressof(row))
+    if err != 0:
+        raise RuntimeError(f"{stem} resources: cudaError {err}")
+    return dict(zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"),
+                    row))
+
+
 def build() -> float:
     """Build (or load) every kernel library; returns the build seconds."""
     for src in sorted(SRC_DIR.glob("*.cu")):

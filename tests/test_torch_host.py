@@ -155,6 +155,13 @@ def test_chip_smoke_imports_neither_jax_nor_reference_package():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
 
 
+def test_kernel_budget_imports_neither_jax_nor_reference_package():
+    mods = list(_imports(PKG.parent / "kernel_budget.py"))
+    assert "chip_smoke" in mods
+    for mod in mods:
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
+
+
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
