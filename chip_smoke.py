@@ -35,7 +35,9 @@ on failure:
      against its plain version on the main path's own inputs;
   3b. the aerosol main path: aerosol1d widened the same way, through
      ``fused_rates`` -> lookups -> ``fused_post`` (each launched once per
-     step), with the same checks, profile and timings;
+     step), with the same checks, profile and timings, and the share of
+     cells and of warps in which each guard of the two kernels runs on
+     their last inputs;
   3c. the fused driver: mixed1 widened the same way with
      KID_TPU_TORCH_FUSED_DRIVER=1 (set by this script), through
      ``fused_kid_step`` alone, with the same checks, profile and timings,
@@ -706,7 +708,42 @@ def phase_aerosol_main_path(dev, card, res):
                                  False),
         (12 * ncol * nz + 4 * ncol) * xb.element_size(),
         counts["fused_post"], want_b, res["fused_post"]))
+    guard_shares(card, lambda: A.fused_rates_ref(st_a, xa[12], tv, cfg, dt_f,
+                                                 False),
+                 lambda: A.fused_post_ref(st_b, xb[12], xb[13], p8, aux, cfg,
+                                          dt_f, False))
     return records
+
+
+def guard_shares(card, *plain):
+    """Where the guards of the aerosol kernels run on the main path's last
+    inputs: each guard's mask as ``solver.guarded`` sees it in the plain
+    versions ``plain``, as the share of cells in the mask and the share of
+    warps (32 levels of a column, one warp of the kernel) with a lane in
+    it, which the kernel cannot skip."""
+    from kid_tpu_torch.micro import solver as S
+    masks = {}
+
+    def record(name, mask, value):
+        masks.setdefault(name, torch.broadcast_to(mask, value.shape))
+        return value
+
+    kept = S.guarded
+    S.guarded = record
+    try:
+        for fn in plain:
+            fn()
+    finally:
+        S.guarded = kept
+    rows = []
+    for name, m in masks.items():
+        ncol, nz = m.shape
+        lanes = torch.nn.functional.pad(m.to(torch.uint8), (0, -nz % 32))
+        warps = lanes.view(ncol, -1, 32).amax(-1)
+        rows.append(f"{name} {float(m.float().mean()):.3f} of cells, "
+                    f"{float(warps.float().mean()):.3f} of warps")
+    print(f"guards on aerosol1d's last inputs: {'; '.join(rows)} [{card}]",
+          flush=True)
 
 
 def profile_steps(dev, card, st, tables, case, istep0, step_ms,

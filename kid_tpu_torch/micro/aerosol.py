@@ -21,6 +21,16 @@ from .. import constants as c
 from .fastmath import exp10, ipow, powc
 
 
+def slip_correction(da: float) -> float:
+    """Cunningham slip correction of an aerosol of diameter ``da`` (m), in
+    Python floats; the CUDA kernels read it as a constant of the header
+    that ``cuda_build.constants_header`` generates."""
+    mean_path = 0.0256e-6
+    return 1.0 + 2.0 * mean_path / da * (1.257
+                                         + 0.4 * math.exp(-0.55 * da
+                                                          / mean_path))
+
+
 def eff_aero(d, da, visc, rhoa, temp, species: str):
     """Slinn/Wang aerosol-scavenging collision efficiency (f90:4354-4390);
     ``species`` in {'r', 's', 'g'} picks the collector fall-speed law."""
@@ -34,10 +44,7 @@ def eff_aero(d, da, visc, rhoa, temp, species: str):
     else:
         raise ValueError(species)
     boltzman = 1.3806503e-23
-    mean_path = 0.0256e-6
-    cc = 1.0 + 2.0 * mean_path / da * (1.257
-                                       + 0.4 * math.exp(-0.55 * da
-                                                        / mean_path))
+    cc = slip_correction(da)
     diff = boltzman * temp * cc / (3.0 * c.PI * visc * da)
     re = 0.5 * rhoa * d * vt / visc
     sc = visc / (rhoa * diff)

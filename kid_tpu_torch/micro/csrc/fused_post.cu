@@ -20,13 +20,25 @@
 // Bound at (ncol, nz) = (8192, 120) f32 without rates: 31 input + 12
 // output channels of 3.93 MB (+ precip) is ~169 MB, >= ~50 us at
 // 3.35 TB/s; bytes bound it.  No fast math (-fmad=false).
+//
+// What the design does about the instruction stream, which sets the time:
+// guards around the rain-evaporation chain and the four fall-speed chains
+// (fill_down never reads an unflagged level), so a warp with no lane in
+// their masks skips them; powc planned at compile time (POWC: f32 mixed
+// SASS 13638 -> 5807 instructions, 350 -> 107 MUFU); a register budget of
+// POST_MIN_BLOCKS_* (f32 mixed 8 blocks of 128 threads per SM, 64
+// registers).  The results are bit for bit those before.  On an NVIDIA
+// H100 80GB HBM3 at 700 W, aerosol1d's own inputs at (8192, 120) f32:
+// 0.244 -> 0.177 ms (PERF.md).
 
+#define KID_FOLD_POWC  // POWC plans powc at compile time (thompson.cuh)
 #include "thompson.cuh"
 
 namespace {
 
-template <typename T, bool WARM, bool RATES>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, bool WARM, bool RATES, int BLOCK>
+__global__ void __launch_bounds__(BLOCK,
+                                  min_blocks(kPostMinBlocks<T, WARM>, BLOCK))
     fused_post_kernel(const T* __restrict__ x, T* __restrict__ y,
                       T* __restrict__ ppt, int ncol, int nz, int l_sediment,
                       double nt_c, double dt, double ifdry) {
@@ -70,21 +82,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// f(the instantiation that a launch of these arguments takes)
-template <typename T, typename F>
-int with_kernel(int iiwarm, int want_rates, F f) {
+// f(the instantiation that a launch of these arguments takes): blocks of
+// up to 128 threads for nz <= 128, of up to 256 above
+template <typename T, int BLOCK, typename F>
+int with_block(int iiwarm, int want_rates, F f) {
   if (iiwarm)
-    return want_rates ? f(fused_post_kernel<T, true, true>)
-                      : f(fused_post_kernel<T, true, false>);
-  return want_rates ? f(fused_post_kernel<T, false, true>)
-                    : f(fused_post_kernel<T, false, false>);
+    return want_rates ? f(fused_post_kernel<T, true, true, BLOCK>)
+                      : f(fused_post_kernel<T, true, false, BLOCK>);
+  return want_rates ? f(fused_post_kernel<T, false, true, BLOCK>)
+                    : f(fused_post_kernel<T, false, false, BLOCK>);
+}
+template <typename T, typename F>
+int with_kernel(int nz, int iiwarm, int want_rates, F f) {
+  return nz <= 128 ? with_block<T, 128>(iiwarm, want_rates, f)
+                   : with_block<T, kMaxThreads>(iiwarm, want_rates, f);
 }
 
 template <typename T>
 int launch(const T* x, T* y, T* ppt, int ncol, int nz, int iiwarm,
            int want_rates, int l_sediment, double nt_c, double dt,
            double ifdry, void* stream) {
-  return with_kernel<T>(iiwarm, want_rates, [&](auto kernel) {
+  return with_kernel<T>(nz, iiwarm, want_rates, [&](auto kernel) {
     return launch_columns(kernel, ncol, nz, stream, x, y, ppt, ncol, nz,
                           l_sediment, nt_c, dt, ifdry);
   });
@@ -97,8 +115,8 @@ int launch(const T* x, T* y, T* ppt, int ncol, int nz, int iiwarm,
 extern "C" int kid_fused_post_resources(int nz, int f64, int iiwarm,
                                         int want_rates, int* row) {
   auto f = [&](auto kernel) { return kernel_resources(kernel, nz, row); };
-  return f64 ? with_kernel<double>(iiwarm, want_rates, f)
-             : with_kernel<float>(iiwarm, want_rates, f);
+  return f64 ? with_kernel<double>(nz, iiwarm, want_rates, f)
+             : with_kernel<float>(nz, iiwarm, want_rates, f);
 }
 
 // C interface, loaded with ctypes by kid_tpu_torch/micro/split_step.py.

@@ -19,13 +19,31 @@
 // (chip_smoke.py counts the plain version's operations) is below that at
 // the 67 TFLOP/s f32 rate, so bytes bound it.  No fast math (-fmad=false
 // keeps the rounding of the plain version).
+//
+// What the design does about the instruction stream, which sets the time
+// (the TPU body computes every chain at every cell, then selects):
+//   * guards: a warp whose 32 levels hold no lane of a mask branches
+//     around the chain the mask discards: the six eff_aero, DeMott, Koop
+//     and the droplet clamp (on aerosol1d they run in 3/4 of the warps or
+//     fewer, Koop and the graupel pair in none);
+//   * POWC: powc's branches on its constant exponent are taken at compile
+//     time (KID_FOLD_POWC), which took the f32 mixed SASS from 19460 to
+//     6535 instructions and 593 to 194 MUFU;
+//   * eff_aero's slip correction is a constant of the generated header;
+//   * a register budget of RATES_MIN_BLOCKS_* (f32 mixed 5 blocks of 128
+//     threads per SM, 96 registers).
+// The results are bit for bit those before.  On an NVIDIA H100 80GB HBM3
+// at 700 W, aerosol1d's own inputs at (8192, 120) f32: 0.467 -> 0.238 ms
+// (PERF.md).
 
+#define KID_FOLD_POWC  // POWC plans powc at compile time (thompson.cuh)
 #include "thompson.cuh"
 
 namespace {
 
-template <typename T, bool WARM, bool RATES>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, bool WARM, bool RATES, int BLOCK>
+__global__ void __launch_bounds__(BLOCK,
+                                  min_blocks(kRatesMinBlocks<T, WARM>, BLOCK))
     fused_rates_kernel(const T* __restrict__ x, T* __restrict__ y, int ncol,
                        int nz, double nt_c, double dt, double ifdry,
                        int dusty, int homog) {
@@ -59,21 +77,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// f(the instantiation that a launch of these arguments takes)
-template <typename T, typename F>
-int with_kernel(int iiwarm, int want_rates, F f) {
+// f(the instantiation that a launch of these arguments takes): blocks of
+// up to 128 threads for nz <= 128, of up to 256 above
+template <typename T, int BLOCK, typename F>
+int with_block(int iiwarm, int want_rates, F f) {
   if (iiwarm)
-    return want_rates ? f(fused_rates_kernel<T, true, true>)
-                      : f(fused_rates_kernel<T, true, false>);
-  return want_rates ? f(fused_rates_kernel<T, false, true>)
-                    : f(fused_rates_kernel<T, false, false>);
+    return want_rates ? f(fused_rates_kernel<T, true, true, BLOCK>)
+                      : f(fused_rates_kernel<T, true, false, BLOCK>);
+  return want_rates ? f(fused_rates_kernel<T, false, true, BLOCK>)
+                    : f(fused_rates_kernel<T, false, false, BLOCK>);
+}
+template <typename T, typename F>
+int with_kernel(int nz, int iiwarm, int want_rates, F f) {
+  return nz <= 128 ? with_block<T, 128>(iiwarm, want_rates, f)
+                   : with_block<T, kMaxThreads>(iiwarm, want_rates, f);
 }
 
 template <typename T>
 int launch(const T* x, T* y, int ncol, int nz, int iiwarm, int want_rates,
            double nt_c, double dt, double ifdry, int dusty, int homog,
            void* stream) {
-  return with_kernel<T>(iiwarm, want_rates, [&](auto kernel) {
+  return with_kernel<T>(nz, iiwarm, want_rates, [&](auto kernel) {
     return launch_columns(kernel, ncol, nz, stream, x, y, ncol, nz, nt_c, dt,
                           ifdry, dusty, homog);
   });
@@ -86,8 +110,8 @@ int launch(const T* x, T* y, int ncol, int nz, int iiwarm, int want_rates,
 extern "C" int kid_fused_rates_resources(int nz, int f64, int iiwarm,
                                          int want_rates, int* row) {
   auto f = [&](auto kernel) { return kernel_resources(kernel, nz, row); };
-  return f64 ? with_kernel<double>(iiwarm, want_rates, f)
-             : with_kernel<float>(iiwarm, want_rates, f);
+  return f64 ? with_kernel<double>(nz, iiwarm, want_rates, f)
+             : with_kernel<float>(nz, iiwarm, want_rates, f);
 }
 
 // C interface, loaded with ctypes by kid_tpu_torch/micro/split_step.py.

@@ -34,16 +34,19 @@
 // NaN-propagating min/max or copies, so the results are bit for bit those
 // of the earlier layout (tests/test_torch_vertical.py models both).
 //
-// Block size and registers: fused_step.cu and fused_kid_step.cu are
-// instantiated per block size (128 threads for nz <= 128, 256 above) with
-// a register budget of MIN_BLOCKS blocks of 128 threads per SM (f32 mixed
-// 5: 96 registers, 20 warps/SM); fused_rates.cu and fused_post.cu keep
-// one instantiation up to MAX_NZ threads and the compiler's own budget.
+// Block size and registers: every kernel is instantiated per block size
+// (128 threads for nz <= 128, 256 above) with a register budget of blocks
+// of 128 threads per SM, per kernel and per (dtype, warm/mixed), chosen
+// on the card with kernel_budget.py: MIN_BLOCKS_* for fused_step.cu and
+// fused_kid_step.cu (f32 mixed 5: 96 registers), RATES_MIN_BLOCKS_* for
+// fused_rates.cu (5: 96) and POST_MIN_BLOCKS_* for fused_post.cu (8: 64).
+// The aerosol kernels also skip, warp by warp, the chains whose values
+// their masks discard (``guard``) and plan powc at compile time (POWC).
 // Nothing but the exchange slots (and fused_kid_step's raw column) lives
 // in shared memory: keeping post()'s Late values there instead of in
 // registers was slower in f32.  Bytes bound every kernel at ~0.05 ms on
 // (8192, 120) f32; on an NVIDIA H100 80GB HBM3 at 700 W they take 0.54
-// (fused_step), 0.67 (fused_kid_step), 0.46 (fused_rates) and 0.25 ms
+// (fused_step), 0.67 (fused_kid_step), 0.24 (fused_rates) and 0.18 ms
 // (fused_post) (PERF.md).
 
 #pragma once
@@ -83,6 +86,20 @@ template <typename T> __device__ __forceinline__ int trunc_int(T x, T lo,
   if (!(x >= lo)) return (int)lo;
   if (x > hi) return (int)hi;
   return (int)x;
+}
+
+// The guards.  A chain whose value no output reads outside ``mask`` runs
+// as ``T v = 0; if (guard<AERO>(mask)) v = chain;`` (each marked ``//
+// guard: <name>``), and the select that reads it is kept as it was, so
+// the results are those of the unguarded chain bit for bit, while a warp
+// with no lane in the mask branches around the chain.  solver.py passes
+// each guarded value through ``guarded(name, mask, value)``, and
+// tests/test_torch_guards.py proves there that no output reads it outside
+// the mask.  Only the aerosol split's kernels (AERO) carry them: for
+// fused_step.cu and fused_kid_step.cu every guard is ``if (true)`` and
+// they compile as before.  A guard never encloses a vertical helper.
+template <bool ON> __device__ __forceinline__ bool guard(bool mask) {
+  return !ON || mask;
 }
 
 template <typename T> __device__ __forceinline__ T exp10_(T x) {
@@ -145,6 +162,73 @@ template <typename T> __device__ __forceinline__ T powc(T x, double p) {
   if (p < 0) out = (T)1 / out;
   return out;
 }
+
+// powc with its branches on p taken by the compiler.  nvcc leaves powc's
+// tests of p (the fraction of |p| against 1/2, 1/3, ...) in the SASS as
+// double adds and compares at run time; POWC(x, p), for a constant p,
+// plans the same chain in constexpr code, so the arithmetic on x is
+// powc's, bit for bit.  fused_rates.cu and fused_post.cu define
+// KID_FOLD_POWC before including this file; the other kernels compile
+// POWC as powc.
+__host__ __device__ constexpr double abs_c(double x) {
+  return x < 0 ? -x : x;
+}
+// powc's choice for the fraction f of |p|: 0 none, 1 sqrt, 2 cbrt, 3
+// cbrt squared, 4 fourth root, 5 three quarters, 6 sixth root, 7 pow
+__host__ __device__ constexpr int powc_frac(double f) {
+  return abs_c(f) < 1e-12                ? 0
+         : abs_c(f - 0.5) < 1e-12        ? 1
+         : abs_c(f - 1.0 / 3.0) < 1e-12  ? 2
+         : abs_c(f - 2.0 / 3.0) < 1e-12  ? 3
+         : abs_c(f - 0.25) < 1e-12       ? 4
+         : abs_c(f - 0.75) < 1e-12       ? 5
+         : abs_c(f - 1.0 / 6.0) < 1e-12  ? 6
+                                         : 7;
+}
+// -1 for p == 0, else (int)|p| | fraction << 16 | (p < 0) << 20
+__host__ __device__ constexpr int powc_plan(double p) {
+  return p == 0.0 ? -1
+                  : (int)abs_c(p) |
+                        powc_frac(abs_c(p) - (int)abs_c(p)) << 16 |
+                        (p < 0 ? 1 << 20 : 0);
+}
+template <int PLAN, typename T>
+__device__ __forceinline__ T powc_planned(T x, double p) {
+  constexpr int k = PLAN & 0xffff, frac = (PLAN >> 16) & 15;
+  if constexpr (PLAN == -1) {
+    return (T)1;
+  } else if constexpr (frac == 7) {
+    return pow(x, (T)p);
+  } else {
+    T extra = (T)0;
+    if constexpr (frac == 1) {
+      extra = sqrt(x);
+    } else if constexpr (frac == 2) {
+      extra = cbrt_(x);
+    } else if constexpr (frac == 3) {
+      T cr = cbrt_(x);
+      extra = cr * cr;
+    } else if constexpr (frac == 4) {
+      extra = sqrt(sqrt(x));
+    } else if constexpr (frac == 5) {
+      T s = sqrt(x);
+      extra = s * sqrt(s);
+    } else if constexpr (frac == 6) {
+      extra = sqrt(cbrt_(x));
+    }
+    T out;
+    if constexpr (frac == 0) out = ipow(x, k);
+    else if constexpr (k == 0) out = extra;
+    else out = ipow(x, k) * extra;
+    if constexpr ((PLAN >> 20) & 1) out = (T)1 / out;
+    return out;
+  }
+}
+#ifdef KID_FOLD_POWC
+#define POWC(x, p) powc_planned<powc_plan(p)>(x, p)
+#else
+#define POWC(x, p) powc(x, p)
+#endif
 
 // Flatau saturation polynomials, Horner order of special._poly8
 template <typename T> __device__ __forceinline__ T sat_(T p, T t,
@@ -222,22 +306,21 @@ __device__ __forceinline__ void subl_prefactor(T temp, T qvsi, T rho,
 enum Species { kRain, kSnow, kGraupel };
 
 // Slinn/Wang scavenging efficiency (aerosol.eff_aero) for an aerosol of
-// diameter da
+// diameter da with Cunningham slip correction cc (SLIP_WFA for 0.04e-6,
+// SLIP_IFA for 0.8e-6: aerosol.slip_correction, folded in double by
+// cuda_build.py, where nvcc left a double exp per call in the f32 code)
 template <typename T, Species SP>
-__device__ __forceinline__ T eff_aero(T d, double da, T visc, T rhoa,
-                                      T temp) {
+__device__ __forceinline__ T eff_aero(T d, double da, double cc, T visc,
+                                      T rhoa, T temp) {
   T vt;
   if (SP == kRain)
     vt = (T)-0.1021 + (T)4.932e3 * d - (T)0.9551e6 * d * d +
          (T)0.07934e9 * ipow(d, 3) - (T)0.002362e12 * ipow(d, 4);
   else if (SP == kSnow)
-    vt = (T)AV_S * powc(d, BV_S);
+    vt = (T)AV_S * POWC(d, BV_S);
   else
-    vt = (T)AV_G * powc(d, BV_G);
+    vt = (T)AV_G * POWC(d, BV_G);
   const double boltzman = 1.3806503e-23;
-  const double mean_path = 0.0256e-6;
-  const double cc =
-      1.0 + 2.0 * mean_path / da * (1.257 + 0.4 * exp(-0.55 * da / mean_path));
   const T diff =
       (T)boltzman * temp * (T)cc / ((T)(3.0 * PI) * visc * (T)da);
   const T re = (T)0.5 * rhoa * d * vt / visc;
@@ -246,11 +329,11 @@ __device__ __forceinline__ T eff_aero(T d, double da, T visc, T rhoa,
   const T aval = (T)1.0 + log((T)1.0 + re);
   const T st2 = ((T)1.2 + (T)(1.0 / 12.0) * aval) / ((T)1.0 + aval);
   T eff = (T)4.0 / (re * sc) *
-              ((T)1.0 + (T)0.4 * sqrt(re) * powc(sc, 1.0 / 3.0) +
+              ((T)1.0 + (T)0.4 * sqrt(re) * POWC(sc, 1.0 / 3.0) +
                (T)0.16 * sqrt(re) * sqrt(sc)) +
           (T)(4.0 * da) / d *
               ((T)0.02 + (T)da / d * ((T)1.0 + (T)2.0 * sqrt(re)));
-  eff = eff + (st > st2 ? powc(mx(st - st2, (T)0) /
+  eff = eff + (st > st2 ? POWC(mx(st - st2, (T)0) /
                                    (st - st2 + (T)0.666667),
                                1.5)
                         : (T)0);
@@ -410,10 +493,10 @@ __device__ __forceinline__ void graupel_psd(T rg, T temp, bool l_qr, T mvd_r,
                                   (T)30.0 + (T)10.0 * ygra1));
   T n0_exp = clampT(exp10_(zans1), (T)GONV_MIN, (T)GONV_MAX);
   n0_exp = suffix_min(n0_exp, valid, vx);
-  T lam_exp = powc(n0_exp * (T)AM_G * (T)CGG_1 / rg, OGE1);
+  T lam_exp = POWC(n0_exp * (T)AM_G * (T)CGG_1 / rg, OGE1);
   T lamg = lam_exp * (T)LAMG_FAC;
   ilamg = (T)1 / lamg;
-  n0_g = n0_exp / ((T)CGG_2 * lam_exp) * powc(lamg, CGE_2);
+  n0_g = n0_exp / ((T)CGG_2 * lam_exp) * POWC(lamg, CGE_2);
 }
 
 // one species' substepped upwind sweep (solver._cfl + solver._sweep).
@@ -604,19 +687,22 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
   T nc0;
   if (AERO) {
     // the droplet number of the state, clamped to the PSD limits
-    const T nc_raw = mx(nc1d * rho0, (T)2.0);
-    const int nu = trunc_int(
-        mn(fnint((T)1000.0e6 / nc_raw) + (T)2, (T)15), (T)0, (T)15);
-    const T ccg1_n = (T)NUC_COEF[nu][0], ccg2_n = (T)NUC_COEF[nu][1];
-    const T ocg1_n = (T)NUC_COEF[nu][3], ocg2_n = (T)NUC_COEF[nu][4];
-    const T cce2_n = (T)NUC_COEF[nu][5];
-    T lamc = powc(nc_raw * (T)AM_R * ccg2_n * ocg1_n / rc0, OBMR);
-    const T xdc = ((T)BM_R + (T)nu + (T)1.0) / lamc;
-    lamc = xdc < (T)D0C
-               ? cce2_n / (T)D0C
-               : (xdc > (T)(D0R * 2.0) ? cce2_n / (T)(D0R * 2.0) : lamc);
-    const T nc_cl = mn(ccg1_n * ocg2_n * rc0 / (T)AM_R * powc(lamc, BM_R),
-                       (T)NT_C_MAX);
+    T nc_cl = 0;
+    if (guard<AERO>(l_qc0)) {  // guard: droplet_clamp
+      const T nc_raw = mx(nc1d * rho0, (T)2.0);
+      const int nu = trunc_int(
+          mn(fnint((T)1000.0e6 / nc_raw) + (T)2, (T)15), (T)0, (T)15);
+      const T ccg1_n = (T)NUC_COEF[nu][0], ccg2_n = (T)NUC_COEF[nu][1];
+      const T ocg1_n = (T)NUC_COEF[nu][3], ocg2_n = (T)NUC_COEF[nu][4];
+      const T cce2_n = (T)NUC_COEF[nu][5];
+      T lamc = POWC(nc_raw * (T)AM_R * ccg2_n * ocg1_n / rc0, OBMR);
+      const T xdc = ((T)BM_R + (T)nu + (T)1.0) / lamc;
+      lamc = xdc < (T)D0C
+                 ? cce2_n / (T)D0C
+                 : (xdc > (T)(D0R * 2.0) ? cce2_n / (T)(D0R * 2.0) : lamc);
+      nc_cl = mn(ccg1_n * ocg2_n * rc0 / (T)AM_R * POWC(lamc, BM_R),
+                 (T)NT_C_MAX);
+    }
     nc0 = l_qc0 ? nc_cl : (T)2.0;
   } else {
     nc0 = l_qc0 ? nt_c : (T)2.0;  // f90:1410
@@ -633,7 +719,7 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
     T ni_fix = mn((T)(CIG_1 * OIG2) * ri0 / (T)AM_I * (T)P_ICE_25,
                   (T)499.0e3);
     T ni1 = (ni1d * rho0 <= (T)R2) ? ni_fix : ni_a;
-    T lami = powc((T)(AM_I * CIG_2 * OIG1) * ni1 / ri0, OBMI);
+    T lami = POWC((T)(AM_I * CIG_2 * OIG1) * ni1 / ri0, OBMI);
     T xdi = (T)(BM_I + MU_I + 1.0) / lami;
     T ni2 = xdi < (T)5.0e-6
                 ? mn((T)(CIG_1 * OIG2) * ri0 / (T)AM_I * (T)P_ICE_5,
@@ -653,7 +739,7 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
   {
     T nr_a = mx(nr1d * rho0, (T)R2);
     T nr1 = (nr1d * rho0 <= (T)R2) ? nr_from_mvd(rr0, 1.0e-3) : nr_a;
-    T lamr = powc((T)(AM_R * CRG_3 * ORG2) * nr1 / rr0, OBMR);
+    T lamr = POWC((T)(AM_R * CRG_3 * ORG2) * nr1 / rr0, OBMR);
     T mvd0 = (T)(3.0 + MU_R + 0.672) / lamr;
     T nr2 = mvd0 > (T)2.5e-3
                 ? nr_from_mvd(rr0, 2.5e-3)
@@ -683,7 +769,7 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
   p.ssatw0 = fabs(ssatw0) < (T)EPS ? (T)0 : ssatw0;
   p.ssati = fabs(ssati) < (T)EPS ? (T)0 : ssati;
   p.diffu0 =
-      (T)2.11e-5 * powc(temp0 / (T)273.15, 1.94) * ((T)101325.0 / pres);
+      (T)2.11e-5 * POWC(temp0 / (T)273.15, 1.94) * ((T)101325.0 / pres);
   p.visco0 =
       tempc0 >= (T)0
           ? ((T)1.718 + (T)0.0049 * tempc0) * (T)1.0e-5
@@ -712,10 +798,10 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
 
   // phase 7: rain PSD (f90:1661-1666)
   {
-    T lamr = powc((T)(AM_R * CRG_3 * ORG2) * nr0 / rr0, OBMR);
+    T lamr = POWC((T)(AM_R * CRG_3 * ORG2) * nr0 / rr0, OBMR);
     p.ilamr0 = (T)1 / lamr;
     p.mvd_r = (T)(3.0 + MU_R + 0.672) / lamr;
-    p.n0_r0 = nr0 * (T)ORG2 * powc(lamr, CRE_2);
+    p.n0_r0 = nr0 * (T)ORG2 * POWC(lamr, CRE_2);
   }
 
   // cloud mvd (f90:1688-1694)
@@ -725,19 +811,19 @@ __device__ __forceinline__ void prologue_cell(const Cell<T>& s,
     const T ccg2_n = (T)NUC_COEF[nu][1], ccg3_n = (T)NUC_COEF[nu][2];
     const T ocg1_n = (T)NUC_COEF[nu][3], ocg2_n = (T)NUC_COEF[nu][4];
     p.nu_c_f = (T)nu;
-    p.xdc = mx(powc(rc0 / ((T)AM_R * nc0), OBMR) * (T)1.0e6,
+    p.xdc = mx(POWC(rc0 / ((T)AM_R * nc0), OBMR) * (T)1.0e6,
                (T)(D0C * 1.0e6));
-    T lamc = powc(nc0 * (T)AM_R * ccg2_n * ocg1_n / rc0, OBMR);
+    T lamc = POWC(nc0 * (T)AM_R * ccg2_n * ocg1_n / rc0, OBMR);
     p.mvd_c = l_qc0 ? ((T)3.0 + p.nu_c_f + (T)0.672) / lamc : (T)D0C;
-    p.dc_g = powc(ccg3_n * ocg2_n, OBMR) / lamc * (T)1.0e6;
+    p.dc_g = POWC(ccg3_n * ocg2_n, OBMR) / lamc * (T)1.0e6;
   }
   p.xds = p.ilami = p.xdi = p.oxmi = (T)0;
   if (!WARM) {
     p.xds = l_qs0 ? p.smoc / mx(p.smob, (T)1e-30) : (T)0;
-    T lami = powc((T)(AM_I * CIG_2 * OIG1) * ni0 / ri0, OBMI);
+    T lami = POWC((T)(AM_I * CIG_2 * OIG1) * ni0 / ri0, OBMI);
     p.ilami = (T)1 / lami;
     p.xdi = mx((T)(BM_I + MU_I + 1.0) * p.ilami, (T)D0I);
-    T xmi = (T)AM_I * powc(p.xdi, BM_I);
+    T xmi = (T)AM_I * POWC(p.xdi, BM_I);
     p.oxmi = (T)1 / xmi;
   }
 
@@ -823,7 +909,7 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
   const T pnr_rcr =
       (l_qr && mvd_r > (T)D0R) ? ef_rr * (T)2.0 * nr * rr : (T)0;
   const bool au = rc > (T)0.01e-3;
-  const T dc_b = powc(
+  const T dc_b = POWC(
       relu(ipow(xdc, 3) * ipow(dc_g, 3) - ipow(xdc, 6)), 1.0 / 6.0);
   const T zeta1 = relu((T)6.25e-6 * xdc * ipow(dc_b, 3) - (T)0.4);
   const T zeta = (T)0.027 * rc * zeta1;
@@ -837,7 +923,7 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
 
   const bool rcw = l_qr && mvd_r > (T)D0R && mvd_c > (T)D0C;
   T lamr = (T)1 / ilamr0;
-  const T geo_r = powc(lamr + (T)FV_R, -CRE_9);
+  const T geo_r = POWC(lamr + (T)FV_R, -CRE_9);
   T prr_rcw =
       rcw ? mn(rc * odts, rhof0 * (T)T1_QR_QC * ef_rw * rc * n0_r0 * geo_r)
           : (T)0;
@@ -850,11 +936,16 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
   T pna_gca = 0, pnd_gcd = 0;
   if (AERO) {
     const bool rca_on = l_qr && mvd_r > (T)D0R;
-    const T ef_ra = eff_aero<T, kRain>(mvd_r, 0.04e-6, visco0, rho, temp);
+    T ef_ra = 0, ef_rd = 0;
+    if (guard<AERO>(rca_on)) {  // guard: rain_aero
+      ef_ra = eff_aero<T, kRain>(mvd_r, 0.04e-6, SLIP_WFA, visco0, rho,
+                                 temp);
+      ef_rd = eff_aero<T, kRain>(mvd_r, 0.8e-6, SLIP_IFA, visco0, rho,
+                                 temp);
+    }
     pna_rca = rca_on ? mn(nwfa * odts, rhof0 * (T)T1_QR_QC * ef_ra * nwfa *
                                            n0_r0 * geo_r)
                      : (T)0;
-    const T ef_rd = eff_aero<T, kRain>(mvd_r, 0.8e-6, visco0, rho, temp);
     pnd_rcd = rca_on ? mn(nifa * odts, rhof0 * (T)T1_QR_QC * ef_rd * nifa *
                                            n0_r0 * geo_r)
                      : (T)0;
@@ -886,9 +977,9 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
 
     // graupel collecting cloud water (f90:1915-1935)
     const T xdg = (T)(BM_G + MU_G + 1.0) * ilamg;
-    const T g_bvg = powc(ilamg, BV_G);
-    const T g_cge9 = g_bvg * powc(ilamg, 3.0);
-    const T g_cge11 = sqrt(g_bvg * powc(ilamg, 5.0));
+    const T g_bvg = POWC(ilamg, BV_G);
+    const T g_cge9 = g_bvg * POWC(ilamg, 3.0);
+    const T g_cge11 = sqrt(g_bvg * POWC(ilamg, 5.0));
     const T vtg_loc = rhof0 * (T)AV_G * (T)CGG_6 * (T)OGG3 * g_bvg;
     const T stoke_g =
         mvd_c * mvd_c * vtg_loc * (T)RHO_W / ((T)9.0 * visco0 * xdg);
@@ -909,21 +1000,31 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
     // snow/graupel collecting aerosols, wet scavenging (f90:1937-1959)
     if (AERO) {
       const bool sca_on = rs > (T)RS1;
-      const T xds_s = p.smoc / mx(p.smob, (T)1e-30);
-      const T ef_sa = eff_aero<T, kSnow>(xds_s, 0.04e-6, visco0, rho, temp);
+      T ef_sa = 0, ef_sd = 0;
+      if (guard<AERO>(sca_on)) {  // guard: snow_aero
+        const T xds_s = p.smoc / mx(p.smob, (T)1e-30);
+        ef_sa = eff_aero<T, kSnow>(xds_s, 0.04e-6, SLIP_WFA, visco0, rho,
+                                   temp);
+        ef_sd = eff_aero<T, kSnow>(xds_s, 0.8e-6, SLIP_IFA, visco0, rho,
+                                   temp);
+      }
       pna_sca = sca_on ? mn(nwfa * odts,
                             rhof0 * (T)T1_QS_QC * ef_sa * nwfa * smoe)
                        : (T)0;
-      const T ef_sd = eff_aero<T, kSnow>(xds_s, 0.8e-6, visco0, rho, temp);
       pnd_scd = sca_on ? mn(nifa * odts,
                             rhof0 * (T)T1_QS_QC * ef_sd * nifa * smoe)
                        : (T)0;
       const bool gca_on = rg > (T)RG1;
-      const T ef_ga = eff_aero<T, kGraupel>(xdg, 0.04e-6, visco0, rho, temp);
+      T ef_ga = 0, ef_gd = 0;
+      if (guard<AERO>(gca_on)) {  // guard: graupel_aero
+        ef_ga = eff_aero<T, kGraupel>(xdg, 0.04e-6, SLIP_WFA, visco0, rho,
+                                      temp);
+        ef_gd = eff_aero<T, kGraupel>(xdg, 0.8e-6, SLIP_IFA, visco0, rho,
+                                      temp);
+      }
       pna_gca = gca_on ? mn(nwfa * odts, rhof0 * (T)T1_QG_QC * ef_ga * nwfa *
                                              n0_g * geo_g)
                        : (T)0;
-      const T ef_gd = eff_aero<T, kGraupel>(xdg, 0.8e-6, visco0, rho, temp);
       pnd_gcd = gca_on ? mn(nifa * odts, rhof0 * (T)T1_QG_QC * ef_gd * nifa *
                                              n0_g * geo_g)
                        : (T)0;
@@ -935,10 +1036,14 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
     // aerosol-aware, else the Cooper curve (f90:2088-2101)
     const bool inu = t_lt_0 && ((ssati >= (T)0.25) ||
                                 ((ssatw0 > (T)EPS) && (temp < (T)253.15)));
-    const T xnc_inu =
-        (AERO && P.dusty)
-            ? ice_demott(tempc, rho, nifa)
-            : mn((T)TNO * exp((T)ATO * ((T)T_0 - temp)), (T)250.0e3);
+    T xnc_inu;
+    if (AERO && P.dusty) {
+      xnc_inu = (T)0;
+      if (guard<AERO>(inu))  // guard: demott
+        xnc_inu = ice_demott(tempc, rho, nifa);
+    } else {
+      xnc_inu = mn((T)TNO * exp((T)ATO * ((T)T_0 - temp)), (T)250.0e3);
+    }
     const T xni_now = ni + (pni_rfz + pni_wfz) * dt;
     const T pni_inu0 =
         (T)0.5 * (xnc_inu - xni_now + fabs(xnc_inu - xni_now)) * odts;
@@ -951,7 +1056,9 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
       const T xni_koop = smo0 + ni + (pni_rfz + pni_wfz + pni_inu) * dt;
       const bool iha_on = t_lt_0 && xni_koop <= (T)500.0e3 &&
                           temp < (T)238.0 && ssati >= (T)0.4;
-      const T xnc_iha = ice_koop(temp, qv, p.qvs0, nwfa, dt);
+      T xnc_iha = 0;
+      if (guard<AERO>(iha_on))  // guard: koop
+        xnc_iha = ice_koop(temp, qv, p.qvs0, nwfa, dt);
       const T pni_iha0 = xnc_iha * odts;
       pri_iha = iha_on ? mn(rate_max_i, (T)(XM0I * 0.1) * pni_iha0) : (T)0;
       pni_iha = iha_on ? pri_iha / (T)(XM0I * 0.1) : (T)0;
@@ -982,7 +1089,7 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
 
     // graupel sublimation (f90:2166-2175)
     const T gde0 = (T)C_CUBE * t1_subl * diffu0 * ssati * rvs_i * n0_g *
-                   ((T)T1_QG_SD * powc(ilamg, CGE_10) +
+                   ((T)T1_QG_SD * POWC(ilamg, CGE_10) +
                     (T)T2_QG_SD * vsc20 * rhof20 * g_cge11);
     const T gde_lim = gde0 < (T)0 ? mx(mx(-rg * odts, gde0), rate_max_i)
                                   : mn(gde0, rate_max_i);
@@ -1004,7 +1111,7 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
     pni_rci = rci_on ? pri_rci * oxmi : (T)0;
     prr_rci = rci_on ? mn(rr * odts, rhof0 * (T)T2_QR_QI * (T)EF_RI * ni *
                                          n0_r0 *
-                                         powc(lamr + (T)FV_R, -CRE_8))
+                                         POWC(lamr + (T)FV_R, -CRE_8))
                      : (T)0;
     prg_rci = rci_on ? pri_rci + prr_rci : (T)0;
 
@@ -1050,10 +1157,10 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
                             (T)T2_QS_SD * rhof20 * vsc20 * smof))
                   : prs_sde;
     const T gml0 = (tempc * tcond0 - (T)LVAP0 * diffu0 * delqvs) * n0_g *
-                   ((T)T1_QG_ME * powc(ilamg, CGE_10) +
+                   ((T)T1_QG_ME * POWC(ilamg, CGE_10) +
                     (T)T2_QG_ME * rhof20 * vsc20 * g_cge11);
     prr_gml = (melt && l_qg) ? mn(rg * odts, mx(gml0, (T)0)) : (T)0;
-    pnr_gml = (melt && l_qg) ? n0_g * (T)CGG_2 * powc(ilamg, CGE_2) /
+    pnr_gml = (melt && l_qg) ? n0_g * (T)CGG_2 * POWC(ilamg, CGE_2) /
                                    mx(rg, (T)R1) * prr_gml *
                                    exp10_((T)-0.5 * tempc)
                              : (T)0;
@@ -1154,12 +1261,12 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
     const T ccg1_n = (T)NUC_COEF[nu][0], ccg2_n = (T)NUC_COEF[nu][1];
     const T ocg1_n = (T)NUC_COEF[nu][3], ocg2_n = (T)NUC_COEF[nu][4];
     const T cce2_n = (T)NUC_COEF[nu][5];
-    T lamc = powc(xnc * (T)AM_R * ccg2_n * ocg1_n / rc, OBMR);
+    T lamc = POWC(xnc * (T)AM_R * ccg2_n * ocg1_n / rc, OBMR);
     T xdc2 = ((T)BM_R + (T)nu + (T)1.0) / lamc;
     T lamc_lo = cce2_n / (T)D0C;
     T lamc_hi = cce2_n / (T)(D0R * 2.0);
-    T xnc_lo = ccg1_n * ocg2_n * xrc / (T)AM_R * powc(lamc_lo, BM_R);
-    T xnc_hi = ccg1_n * ocg2_n * xrc / (T)AM_R * powc(lamc_hi, BM_R);
+    T xnc_lo = ccg1_n * ocg2_n * xrc / (T)AM_R * POWC(lamc_lo, BM_R);
+    T xnc_hi = ccg1_n * ocg2_n * xrc / (T)AM_R * POWC(lamc_hi, BM_R);
     ncten = xrc > (T)R1
                 ? (xdc2 < (T)D0C
                        ? (xnc_lo - nc1d * rho) * odts * orho
@@ -1183,7 +1290,7 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
 
     T xri = mx((qi1d + qiten * dt) * rho, (T)R1);
     T xni = mx((ni1d + niten * dt) * rho, (T)R2);
-    T lami = powc((T)(AM_I * CIG_2 * OIG1) * xni / xri, OBMI);
+    T lami = POWC((T)(AM_I * CIG_2 * OIG1) * xni / xri, OBMI);
     T xdi2 = (T)(BM_I + MU_I + 1.0) / lami;
     T xni_lo =
         mn((T)(CIG_1 * OIG2) * xri / (T)AM_I * (T)P_ICE_5, (T)499.0e3);
@@ -1206,7 +1313,7 @@ __device__ __forceinline__ void rates(const Pro<T>& p,
 
     T xrr = mx((qr1d + qrten * dt) * rho, (T)R1);
     T xnr = mx((nr1d + nrten * dt) * rho, (T)R2);
-    T lamr_b = powc((T)(AM_R * CRG_3 * ORG2) * xnr / xrr, OBMR);
+    T lamr_b = POWC((T)(AM_R * CRG_3 * ORG2) * xnr / xrr, OBMR);
     T mvd_b = (T)(3.0 + MU_R + 0.672) / lamr_b;
     T xnr_hi = nr_from_mvd(xrr, 2.5e-3);
     T xnr_lo = nr_from_mvd(xrr, D0R * 0.75);
@@ -1348,7 +1455,7 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
   T nr2;
   {
     T nr_a = mx((nr1d + nrten * dt) * rho2, (T)R2);
-    T lamr_a = powc((T)(AM_R * CRG_3 * ORG2) * nr_a / rr2, OBMR);
+    T lamr_a = POWC((T)(AM_R * CRG_3 * ORG2) * nr_a / rr2, OBMR);
     T mvd0 = (T)(3.0 + MU_R + 0.672) / lamr_a;
     T nr_b = mvd0 > (T)2.5e-3
                  ? nr_from_mvd(rr2, 2.5e-3)
@@ -1375,9 +1482,9 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
   }
   T ilamr2, n0_r2;
   {
-    T lamr_a = powc((T)(AM_R * CRG_3 * ORG2) * nr2 / rr2, OBMR);
+    T lamr_a = POWC((T)(AM_R * CRG_3 * ORG2) * nr2 / rr2, OBMR);
     ilamr2 = (T)1 / lamr_a;
-    n0_r2 = nr2 * (T)ORG2 * powc(lamr_a, CRE_2);
+    n0_r2 = nr2 * (T)ORG2 * POWC(lamr_a, CRE_2);
   }
 
   // phase 14: saturation adjustment + droplet nucleation
@@ -1439,31 +1546,35 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
   {
     tempc2 = temp2 - (T)273.15;
     orho2 = (T)1 / rho2;
-    T rhof2_c = sqrt(sqrt((T)RHO_NOT * orho2));
-    T diffu_c =
-        (T)2.11e-5 * powc(temp2 / (T)273.15, 1.94) * ((T)101325.0 / pres);
-    T visco_c =
-        tempc2 >= (T)0
-            ? ((T)1.718 + (T)0.0049 * tempc2) * (T)1.0e-5
-            : ((T)1.718 + (T)0.0049 * tempc2 -
-               (T)1.2e-5 * ipow(tempc2, 2)) * (T)1.0e-5;
-    T vsc2_c = sqrt(rho2 / visco_c);
-    T lvap_c = (T)LVAP0 + (T)(2106.0 - 4218.0) * tempc2;
-    T tcond_c = ((T)5.69 + (T)0.0168 * tempc2) * (T)1.0e-5 * (T)418.936;
-    T ocp_c = (T)1 / ((T)CP * ((T)1 + (T)0.887 * qv2));
-    lvap2 = rev_mask ? lvap_c : lvap2;
-    ocp2 = rev_mask ? ocp_c : ocp2;
-    T t1_evap, rvs_w;
-    subl_prefactor(temp2, qvs2, rho2, diffu_c, tcond_c,
-                   mn(ssatw2, (T)-1.0e-9), lvap_c, (T)-2.0 * lvap_c,
-                   2.0 * PI, t1_evap, rvs_w);
-    T lamr_e = (T)1 / ilamr2;
-    const bool quick =
-        (qv2 / qvs2 < (T)0.95) && (rr2 * orho2 <= (T)1.0e-8);
-    T rev0 = t1_evap * diffu_c * (-ssatw2) * n0_r2 * rvs_w *
-             ((T)T1_QR_EV * powc(ilamr2, CRE_10) +
+    // lvap2 and ocp2 change under rev_mask only; quick is read there only
+    bool quick = false;
+    T rev0 = 0;
+    if (guard<AERO>(rev_mask)) {  // guard: rain_evap
+      T rhof2_c = sqrt(sqrt((T)RHO_NOT * orho2));
+      T diffu_c =
+          (T)2.11e-5 * POWC(temp2 / (T)273.15, 1.94) * ((T)101325.0 / pres);
+      T visco_c =
+          tempc2 >= (T)0
+              ? ((T)1.718 + (T)0.0049 * tempc2) * (T)1.0e-5
+              : ((T)1.718 + (T)0.0049 * tempc2 -
+                 (T)1.2e-5 * ipow(tempc2, 2)) * (T)1.0e-5;
+      T vsc2_c = sqrt(rho2 / visco_c);
+      T lvap_c = (T)LVAP0 + (T)(2106.0 - 4218.0) * tempc2;
+      T tcond_c = ((T)5.69 + (T)0.0168 * tempc2) * (T)1.0e-5 * (T)418.936;
+      T ocp_c = (T)1 / ((T)CP * ((T)1 + (T)0.887 * qv2));
+      lvap2 = rev_mask ? lvap_c : lvap2;
+      ocp2 = rev_mask ? ocp_c : ocp2;
+      T t1_evap, rvs_w;
+      subl_prefactor(temp2, qvs2, rho2, diffu_c, tcond_c,
+                     mn(ssatw2, (T)-1.0e-9), lvap_c, (T)-2.0 * lvap_c,
+                     2.0 * PI, t1_evap, rvs_w);
+      T lamr_e = (T)1 / ilamr2;
+      quick = (qv2 / qvs2 < (T)0.95) && (rr2 * orho2 <= (T)1.0e-8);
+      rev0 = t1_evap * diffu_c * (-ssatw2) * n0_r2 * rvs_w *
+             ((T)T1_QR_EV * POWC(ilamr2, CRE_10) +
               (T)T2_QR_EV * vsc2_c * rhof2_c *
-                  powc(lamr_e + (T)(0.5 * FV_R), -CRE_11));
+                  POWC(lamr_e + (T)(0.5 * FV_R), -CRE_11));
+    }
     T rate_max = mn(rr2 * orho2 * odts, (qvs2 - qv2) * odts);
     T rev1 = mn(rate_max, rev0 * orho2);
     T eva_factor = prr_gml > (T)0
@@ -1496,11 +1607,15 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
   T vtrk;
   {
     const bool valid_r = valid && rr2 > (T)R1;
-    T lamr_s = powc((T)(AM_R * CRG_3 * ORG2) * nr2 / rr2, OBMR);
-    T vtr_m = rhof3 * (T)AV_R * (T)CRG_6 * (T)ORG3 * powc(lamr_s, CRE_3) *
-              powc(lamr_s + (T)FV_R, -CRE_6);
-    T vtr_n = rhof3 * (T)AV_R * (T)CRG_7 / (T)CRG_12 *
-              powc(lamr_s, CRE_12) * powc(lamr_s + (T)FV_R, -CRE_7);
+    // fill_down reads a value only where its flag holds
+    T vtr_m = 0, vtr_n = 0;
+    if (guard<AERO>(valid_r)) {  // guard: rain_fall
+      T lamr_s = POWC((T)(AM_R * CRG_3 * ORG2) * nr2 / rr2, OBMR);
+      vtr_m = rhof3 * (T)AV_R * (T)CRG_6 * (T)ORG3 * POWC(lamr_s, CRE_3) *
+              POWC(lamr_s + (T)FV_R, -CRE_6);
+      vtr_n = rhof3 * (T)AV_R * (T)CRG_7 / (T)CRG_12 *
+              POWC(lamr_s, CRE_12) * POWC(lamr_s + (T)FV_R, -CRE_7);
+    }
     vtrk = fill_down(vtr_m, valid_r, vx);
     T vtnrk = fill_down(vtr_n, valid_r, vx);
     T vmax_r = mx(vtrk, vtnrk);
@@ -1511,10 +1626,13 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
     const T gate = P.l_sediment ? (T)1 : (T)0;
     {
       const bool valid_i = valid && ri2 > (T)R1;
-      T lami = powc((T)(AM_I * CIG_2 * OIG1) * ni2 / ri2, OBMI);
-      T ilami2 = (T)1 / lami;
-      T vti_m = rhof3 * (T)AV_I * (T)CIG_3 * (T)OIG2 * powc(ilami2, BV_I);
-      T vti_n = rhof3 * (T)AV_I * (T)CIG_6 / (T)CIG_7 * powc(ilami2, BV_I);
+      T vti_m = 0, vti_n = 0;
+      if (guard<AERO>(valid_i)) {  // guard: ice_fall
+        T lami = POWC((T)(AM_I * CIG_2 * OIG1) * ni2 / ri2, OBMI);
+        T ilami2 = (T)1 / lami;
+        vti_m = rhof3 * (T)AV_I * (T)CIG_3 * (T)OIG2 * POWC(ilami2, BV_I);
+        vti_n = rhof3 * (T)AV_I * (T)CIG_6 / (T)CIG_7 * POWC(ilami2, BV_I);
+      }
       T vtik = fill_down(vti_m, valid_i, vx);
       T vtnik = fill_down(vti_n, valid_i, vx);
       sweep<T, true>(vtik, vtik, vtnik, qiten, niten, ri2, ni2, (T)R1,
@@ -1522,20 +1640,23 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
     }
     {
       const bool valid_s = valid && rs2 > (T)R1;
-      T xds2 = smoc / mx(smob, (T)1e-30);
-      T mrat = (T)1 / mx(xds2, (T)1e-30);
-      T ils1 = (T)1 / (mrat * (T)LAM0 + (T)FV_S);
-      T ils2 = (T)1 / (mrat * (T)LAM1 + (T)FV_S);
-      T t1v = (T)(KAP0 * CSG_4) * powc(ils1, CSE_4);
-      T t2v = (T)KAP1 * powc(mrat, MU_S) * (T)CSG_10 * powc(ils2, CSE_10);
-      ils1 = (T)1 / (mrat * (T)LAM0);
-      ils2 = (T)1 / (mrat * (T)LAM1);
-      T t3v = (T)(KAP0 * CSG_1) * powc(ils1, CSE_1);
-      T t4v = (T)KAP1 * powc(mrat, MU_S) * (T)CSG_7 * powc(ils2, CSE_7);
-      T vts = rhof3 * (T)AV_S * (t1v + t2v) / (t3v + t4v);
-      T vts_melt = mx(vts * vts_boost,
-                      vts * ((vtrk - vts * vts_boost) / (temp2 - (T)T_0)));
-      T vts_eff = temp2 > (T)(T_0 + 0.1) ? vts_melt : vts * vts_boost;
+      T vts_eff = 0;
+      if (guard<AERO>(valid_s)) {  // guard: snow_fall
+        T xds2 = smoc / mx(smob, (T)1e-30);
+        T mrat = (T)1 / mx(xds2, (T)1e-30);
+        T ils1 = (T)1 / (mrat * (T)LAM0 + (T)FV_S);
+        T ils2 = (T)1 / (mrat * (T)LAM1 + (T)FV_S);
+        T t1v = (T)(KAP0 * CSG_4) * POWC(ils1, CSE_4);
+        T t2v = (T)KAP1 * POWC(mrat, MU_S) * (T)CSG_10 * POWC(ils2, CSE_10);
+        ils1 = (T)1 / (mrat * (T)LAM0);
+        ils2 = (T)1 / (mrat * (T)LAM1);
+        T t3v = (T)(KAP0 * CSG_1) * POWC(ils1, CSE_1);
+        T t4v = (T)KAP1 * POWC(mrat, MU_S) * (T)CSG_7 * POWC(ils2, CSE_7);
+        T vts = rhof3 * (T)AV_S * (t1v + t2v) / (t3v + t4v);
+        T vts_melt = mx(vts * vts_boost,
+                        vts * ((vtrk - vts * vts_boost) / (temp2 - (T)T_0)));
+        vts_eff = temp2 > (T)(T_0 + 0.1) ? vts_melt : vts * vts_boost;
+      }
       T vtsk = fill_down(vts_eff, valid_s, vx);
       T dummy_t = 0, dummy_n = 0;
       sweep<T, false>(vtsk, vtsk, (T)0, qsten, dummy_t, rs2, dummy_n, (T)R1,
@@ -1543,8 +1664,11 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
     }
     {
       const bool valid_g = valid && rg2 > (T)R1;
-      T vtg = rhof3 * (T)AV_G * (T)CGG_6 * (T)OGG3 * powc(ilamg, BV_G);
-      T vtg_eff = temp2 > (T)T_0 ? mx(vtg, vtrk) : vtg;
+      T vtg_eff = 0;
+      if (guard<AERO>(valid_g)) {  // guard: graupel_fall
+        T vtg = rhof3 * (T)AV_G * (T)CGG_6 * (T)OGG3 * POWC(ilamg, BV_G);
+        vtg_eff = temp2 > (T)T_0 ? mx(vtg, vtrk) : vtg;
+      }
       T vtgk = fill_down(vtg_eff, valid_g, vx);
       T dummy_t = 0, dummy_n = 0;
       sweep<T, false>(vtgk, vtgk, (T)0, qgten, dummy_t, rg2, dummy_n, (T)R1,
@@ -1590,13 +1714,13 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
     const T ccg1_n = (T)NUC_COEF[nu][0], ccg2_n = (T)NUC_COEF[nu][1];
     const T ocg1_n = (T)NUC_COEF[nu][3], ocg2_n = (T)NUC_COEF[nu][4];
     const T cce2_n = (T)NUC_COEF[nu][5];
-    T lamc = powc((T)AM_R * ccg2_n * ocg1_n * nc_out / mx(qc_out, (T)R1),
+    T lamc = POWC((T)AM_R * ccg2_n * ocg1_n * nc_out / mx(qc_out, (T)R1),
                   OBMR);
     T xdc3 = ((T)BM_R + (T)nu + (T)1.0) / lamc;
     lamc = xdc3 < (T)D0C
                ? cce2_n / (T)D0C
                : (xdc3 > (T)(D0R * 2.0) ? cce2_n / (T)(D0R * 2.0) : lamc);
-    T nc_renorm = mn(ccg1_n * ocg2_n * qc_out / (T)AM_R * powc(lamc, BM_R),
+    T nc_renorm = mn(ccg1_n * ocg2_n * qc_out / (T)AM_R * POWC(lamc, BM_R),
                      (T)NT_C_MAX / rho2);
     qc_out = has_c ? qc_out : (T)0;
     nc_out = has_c ? nc_renorm : (T)0;
@@ -1605,13 +1729,13 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
   T ni_out = mx(ni1d + niten * dt, (T)R2 / rho2);
   {
     const bool has_i = qi_out > (T)R1;
-    T lami = powc((T)(AM_I * CIG_2 * OIG1) * ni_out / mx(qi_out, (T)R1),
+    T lami = POWC((T)(AM_I * CIG_2 * OIG1) * ni_out / mx(qi_out, (T)R1),
                   OBMI);
     T xdi3 = (T)(BM_I + MU_I + 1.0) / lami;
     lami = xdi3 < (T)5.0e-6
                ? (T)(CIE_2 / 5.0e-6)
                : (xdi3 > (T)300.0e-6 ? (T)(CIE_2 / 300.0e-6) : lami);
-    T ni_renorm = mn((T)(CIG_1 * OIG2) * qi_out / (T)AM_I * powc(lami, BM_I),
+    T ni_renorm = mn((T)(CIG_1 * OIG2) * qi_out / (T)AM_I * POWC(lami, BM_I),
                      (T)499.0e3 / rho2);
     qi_out = has_i ? qi_out : (T)0;
     ni_out = has_i ? ni_renorm : (T)0;
@@ -1620,13 +1744,13 @@ __device__ __forceinline__ void post(const Late<T>& l, const Pro<T>& p,
   T nr_out = mx(nr1d + nrten * dt, (T)R2 / rho2);
   {
     const bool has_r = qr_out > (T)R1;
-    T lamr_f = powc((T)(AM_R * CRG_3 * ORG2) * nr_out / mx(qr_out, (T)R1),
+    T lamr_f = POWC((T)(AM_R * CRG_3 * ORG2) * nr_out / mx(qr_out, (T)R1),
                     OBMR);
     T mvd_f = clampT((T)(3.0 + MU_R + 0.672) / lamr_f, (T)(D0R * 0.75),
                      (T)2.5e-3);
     lamr_f = (T)(3.0 + MU_R + 0.672) / mvd_f;
     T nr_renorm =
-        (T)(CRG_2 * ORG3) * qr_out * powc(lamr_f, BM_R) / (T)AM_R;
+        (T)(CRG_2 * ORG3) * qr_out * POWC(lamr_f, BM_R) / (T)AM_R;
     qr_out = has_r ? qr_out : (T)0;
     nr_out = has_r ? nr_renorm : (T)0;
   }
@@ -1672,10 +1796,11 @@ inline int block_threads(int nz) {
   return (nz + 31) / 32 * 32;
 }
 
-// The register budget of fused_step.cu and fused_kid_step.cu: how many
-// blocks of 128 threads must fit on an SM, by dtype and warm/mixed.
-// Chosen on the card (PERF.md); kernel_budget.py rebuilds with -D to time
-// others.
+// The register budgets: how many blocks of 128 threads must fit on an SM,
+// by dtype and warm/mixed, for fused_step.cu and fused_kid_step.cu
+// (MIN_BLOCKS_*), fused_rates.cu (RATES_MIN_BLOCKS_*) and fused_post.cu
+// (POST_MIN_BLOCKS_*).  Chosen on the card (PERF.md); kernel_budget.py
+// rebuilds with -D to time others.
 #ifndef MIN_BLOCKS_F32_MIXED
 #define MIN_BLOCKS_F32_MIXED 5
 #endif
@@ -1688,10 +1813,49 @@ inline int block_threads(int nz) {
 #ifndef MIN_BLOCKS_F64_WARM
 #define MIN_BLOCKS_F64_WARM 4
 #endif
+#ifndef RATES_MIN_BLOCKS_F32_MIXED
+#define RATES_MIN_BLOCKS_F32_MIXED 5
+#endif
+#ifndef RATES_MIN_BLOCKS_F32_WARM
+#define RATES_MIN_BLOCKS_F32_WARM 8
+#endif
+#ifndef RATES_MIN_BLOCKS_F64_MIXED
+#define RATES_MIN_BLOCKS_F64_MIXED 3
+#endif
+#ifndef RATES_MIN_BLOCKS_F64_WARM
+#define RATES_MIN_BLOCKS_F64_WARM 4
+#endif
+#ifndef POST_MIN_BLOCKS_F32_MIXED
+#define POST_MIN_BLOCKS_F32_MIXED 8
+#endif
+#ifndef POST_MIN_BLOCKS_F32_WARM
+#define POST_MIN_BLOCKS_F32_WARM 8
+#endif
+#ifndef POST_MIN_BLOCKS_F64_MIXED
+#define POST_MIN_BLOCKS_F64_MIXED 4
+#endif
+#ifndef POST_MIN_BLOCKS_F64_WARM
+#define POST_MIN_BLOCKS_F64_WARM 4
+#endif
+// the budget of one (dtype, warm/mixed) among a kernel's four
+template <typename T, bool WARM>
+constexpr int pick_budget(int f32_mixed, int f32_warm, int f64_mixed,
+                          int f64_warm) {
+  return sizeof(T) == 4 ? (WARM ? f32_warm : f32_mixed)
+                        : (WARM ? f64_warm : f64_mixed);
+}
 template <typename T, bool WARM>
 constexpr int kMinBlocks =
-    sizeof(T) == 4 ? (WARM ? MIN_BLOCKS_F32_WARM : MIN_BLOCKS_F32_MIXED)
-                   : (WARM ? MIN_BLOCKS_F64_WARM : MIN_BLOCKS_F64_MIXED);
+    pick_budget<T, WARM>(MIN_BLOCKS_F32_MIXED, MIN_BLOCKS_F32_WARM,
+                         MIN_BLOCKS_F64_MIXED, MIN_BLOCKS_F64_WARM);
+template <typename T, bool WARM>
+constexpr int kRatesMinBlocks = pick_budget<T, WARM>(
+    RATES_MIN_BLOCKS_F32_MIXED, RATES_MIN_BLOCKS_F32_WARM,
+    RATES_MIN_BLOCKS_F64_MIXED, RATES_MIN_BLOCKS_F64_WARM);
+template <typename T, bool WARM>
+constexpr int kPostMinBlocks = pick_budget<T, WARM>(
+    POST_MIN_BLOCKS_F32_MIXED, POST_MIN_BLOCKS_F32_WARM,
+    POST_MIN_BLOCKS_F64_MIXED, POST_MIN_BLOCKS_F64_WARM);
 
 // the second argument of __launch_bounds__(block, ...) for a kernel that
 // must fit ``per128`` blocks of 128 threads on an SM: the same register

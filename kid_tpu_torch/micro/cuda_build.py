@@ -27,6 +27,7 @@ import torch
 from .. import constants as c
 from ..special import _RSIF_C, _RSLF_C
 from . import solver as S
+from .aerosol import slip_correction
 
 SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kid_tpu_torch"
@@ -74,6 +75,9 @@ def constants_header() -> str:
         "LN10_PY": 2.302585092994046,
         "INV_LN10_PY": 0.4342944819032518,
         "INV_LN10_SNOW": 1.0 / math.log(10.0),
+        # eff_aero's slip corrections of its two aerosol diameters
+        "SLIP_WFA": slip_correction(0.04e-6),
+        "SLIP_IFA": slip_correction(0.8e-6),
     }
     # powc(CIE[2] / D, BM_I) on a Python float: binary squaring
     for tag, d in (("25", 25.0e-6), ("5", 5.0e-6), ("300", 300.0e-6)):

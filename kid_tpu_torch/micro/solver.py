@@ -157,6 +157,16 @@ def _nuc_rows(nu_c, dtype):
     return _nuc_table(dtype, nu_c.device)[nu_c].unbind(-1)
 
 
+def guarded(name: str, mask, value):
+    """``value``, which no output reads where ``mask`` is false.  The
+    aerosol kernels compute it under the guard of the same name
+    (``// guard: <name>`` in csrc/thompson.cuh), which a warp with no lane
+    in ``mask`` skips; tests/test_torch_guards.py replaces this identity
+    with one that spoils ``value`` outside ``mask`` and checks that every
+    output keeps its bits."""
+    return value
+
+
 def _relu(x):
     # Fortran idiom 0.5*((x)+abs(x)) (e.g. f90:1702,2098)
     return torch.clamp(x, min=0.0)
@@ -402,11 +412,13 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
     pna_gca = z; pnd_gcd = z
     if aero:
         rca_on = l_qr & (mvd_r > c.D0R)
-        ef_ra = eff_aero(mvd_r, 0.04e-6, visco, rho, temp, "r")
+        ef_ra = guarded("rain_aero", rca_on,
+                        eff_aero(mvd_r, 0.04e-6, visco, rho, temp, "r"))
         pna_rca = torch.where(rca_on, torch.minimum(
             nwfa * odts, rhof * c.T1_QR_QC * ef_ra * nwfa * n0_r * geo_r),
             0.0)
-        ef_rd = eff_aero(mvd_r, 0.8e-6, visco, rho, temp, "r")
+        ef_rd = guarded("rain_aero", rca_on,
+                        eff_aero(mvd_r, 0.8e-6, visco, rho, temp, "r"))
         pnd_rcd = torch.where(rca_on, torch.minimum(
             nifa * odts, rhof * c.T1_QR_QC * ef_rd * nifa * n0_r * geo_r),
             0.0)
@@ -463,18 +475,22 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
         if aero:
             sca_on = rs > _RS1
             xds_s = pro["smoc"] / torch.clamp(pro["smob"], min=1e-30)
-            ef_sa = eff_aero(xds_s, 0.04e-6, visco, rho, temp, "s")
+            ef_sa = guarded("snow_aero", sca_on,
+                            eff_aero(xds_s, 0.04e-6, visco, rho, temp, "s"))
             pna_sca = torch.where(sca_on, torch.minimum(
                 nwfa * odts, rhof * c.T1_QS_QC * ef_sa * nwfa * smoe), 0.0)
-            ef_sd = eff_aero(xds_s, 0.8e-6, visco, rho, temp, "s")
+            ef_sd = guarded("snow_aero", sca_on,
+                            eff_aero(xds_s, 0.8e-6, visco, rho, temp, "s"))
             pnd_scd = torch.where(sca_on, torch.minimum(
                 nifa * odts, rhof * c.T1_QS_QC * ef_sd * nifa * smoe), 0.0)
             gca_on = rg > _RG1
-            ef_ga = eff_aero(xdg, 0.04e-6, visco, rho, temp, "g")
+            ef_ga = guarded("graupel_aero", gca_on,
+                            eff_aero(xdg, 0.04e-6, visco, rho, temp, "g"))
             pna_gca = torch.where(gca_on, torch.minimum(
                 nwfa * odts,
                 rhof * c.T1_QG_QC * ef_ga * nwfa * n0_g * geo_g), 0.0)
-            ef_gd = eff_aero(xdg, 0.8e-6, visco, rho, temp, "g")
+            ef_gd = guarded("graupel_aero", gca_on,
+                            eff_aero(xdg, 0.8e-6, visco, rho, temp, "g"))
             pnd_gcd = torch.where(gca_on, torch.minimum(
                 nifa * odts,
                 rhof * c.T1_QG_QC * ef_gd * nifa * n0_g * geo_g), 0.0)
@@ -487,7 +503,8 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
         inu = t_lt_0 & ((ssati >= 0.25) | ((ssatw > c.EPS)
                                            & (temp < 253.15)))
         if aero and cfg.dusty_ice:
-            xnc_inu = ice_demott(tempc, qv, pro["qvs"], qvsi, rho, nifa)
+            xnc_inu = guarded("demott", inu, ice_demott(
+                tempc, qv, pro["qvs"], qvsi, rho, nifa))
         else:
             xnc_inu = torch.clamp(c.TNO * torch.exp(c.ATO * (c.T_0 - temp)),
                                   max=250.0e3)
@@ -504,7 +521,8 @@ def rates_and_tendencies(pro, cfg, dt_f, want_rates=True):
             xni_koop = smo0 + ni + (pni_rfz + pni_wfz + pni_inu) * dt
             iha_on = (t_lt_0 & (xni_koop <= 500.0e3) & (temp < 238.0)
                       & (ssati >= 0.4))
-            xnc_iha = ice_koop(temp, qv, pro["qvs"], nwfa, dt)
+            xnc_iha = guarded("koop", iha_on,
+                              ice_koop(temp, qv, pro["qvs"], nwfa, dt))
             pni_iha0 = xnc_iha * odts
             pri_iha = torch.where(iha_on, torch.minimum(
                 rate_max_i, c.XM0I * 0.1 * pni_iha0), 0.0)
@@ -846,8 +864,9 @@ def _prologue(state: ColumnState, pres, cfg: MicroConfig, want_idx=True):
         lamc = torch.where(xdc < c.D0C, cce2_n / c.D0C,
                            torch.where(xdc > c.D0R * 2.0,
                                        cce2_n / (c.D0R * 2.0), lamc))
-        nc_cl = torch.clamp(ccg1_n * ocg2_n * rc / c.AM_R
-                            * powc(lamc, c.BM_R), max=c.NT_C_MAX)
+        nc_cl = guarded("droplet_clamp", l_qc, torch.clamp(
+            ccg1_n * ocg2_n * rc / c.AM_R * powc(lamc, c.BM_R),
+            max=c.NT_C_MAX))
         nc = torch.where(l_qc, nc_cl, 2.0)
     else:
         nc = torch.where(l_qc, torch.full_like(qv, nt_c), 2.0)  # f90:1410
@@ -1301,20 +1320,24 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
         tempc >= 0.0, (1.718 + 0.0049 * tempc) * 1.0e-5,
         (1.718 + 0.0049 * tempc - 1.2e-5 * ipow(tempc, 2)) * 1.0e-5)
     vsc2_c = torch.sqrt(rho / visco_c)
-    lvap_c = c.LVAP0 + (2106.0 - 4218.0) * tempc
+    lvap_c = guarded("rain_evap", rev_mask,
+                     c.LVAP0 + (2106.0 - 4218.0) * tempc)
     tcond_c = (5.69 + 0.0168 * tempc) * 1.0e-5 * 418.936
-    ocp_c = 1.0 / (c.CP * (1.0 + 0.887 * qv))
+    ocp_c = guarded("rain_evap", rev_mask,
+                    1.0 / (c.CP * (1.0 + 0.887 * qv)))
     lvap = torch.where(rev_mask, lvap_c, lvap)
     ocp = torch.where(rev_mask, ocp_c, ocp)
     t1_evap, rvs_w = _subl_prefactor(
         temp, qvs, rho, diffu_c, tcond_c, torch.clamp(ssatw, max=-1.0e-9),
         lvap_c, 2.0 * c.PI)
     lamr = 1.0 / ilamr
-    quick = (qv / qvs < 0.95) & (rr * orho <= 1.0e-8)
-    rev0 = (t1_evap * diffu_c * (-ssatw) * n0_r * rvs_w
-            * (c.T1_QR_EV * powc(ilamr, CRE[10])
-               + c.T2_QR_EV * vsc2_c * rhof2_c
-               * powc(lamr + 0.5 * c.FV_R, -CRE[11])))
+    quick = guarded("rain_evap", rev_mask,
+                    (qv / qvs < 0.95) & (rr * orho <= 1.0e-8))
+    rev0 = guarded("rain_evap", rev_mask,
+                   t1_evap * diffu_c * (-ssatw) * n0_r * rvs_w
+                   * (c.T1_QR_EV * powc(ilamr, CRE[10])
+                      + c.T2_QR_EV * vsc2_c * rhof2_c
+                      * powc(lamr + 0.5 * c.FV_R, -CRE[11])))
     rate_max = torch.minimum(rr * orho * odts, (qvs - qv) * odts)
     rev1 = torch.minimum(rate_max, rev0 * orho)
     # graupel-melt suppression factor (f90:2940-2943)
@@ -1357,11 +1380,13 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
     # rain (never gated by l_sediment; f90:3365-3399)
     valid_r = rr > c.R1
     lamr = powc(c.AM_R * CRG[3] * c.ORG2 * nr / rr, c.OBMR)
-    vtr_m = (rhof * c.AV_R * CRG[6] * c.ORG3 * powc(lamr, CRE[3])
-             * powc(lamr + c.FV_R, -CRE[6]))
+    vtr_m = guarded("rain_fall", valid_r,
+                    rhof * c.AV_R * CRG[6] * c.ORG3 * powc(lamr, CRE[3])
+                    * powc(lamr + c.FV_R, -CRE[6]))
     # deliberately slower number-weighted fall (f90:3229-3233)
-    vtr_n = (rhof * c.AV_R * CRG[7] / CRG[12] * powc(lamr, CRE[12])
-             * powc(lamr + c.FV_R, -CRE[7]))
+    vtr_n = guarded("rain_fall", valid_r,
+                    rhof * c.AV_R * CRG[7] / CRG[12] * powc(lamr, CRE[12])
+                    * powc(lamr + c.FV_R, -CRE[7]))
     vtrk = _fill_down(vtr_m, valid_r)
     vtnrk = _fill_down(vtr_n, valid_r)
     vmax_r = torch.maximum(vtrk, vtnrk)
@@ -1377,8 +1402,10 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
         valid_i = ri > c.R1
         lami = powc(c.AM_I * CIG[2] * c.OIG1 * ni / ri, c.OBMI)
         ilami = 1.0 / lami
-        vti_m = rhof * c.AV_I * CIG[3] * c.OIG2 * powc(ilami, c.BV_I)
-        vti_n = rhof * c.AV_I * CIG[6] / CIG[7] * powc(ilami, c.BV_I)
+        vti_m = guarded("ice_fall", valid_i, rhof * c.AV_I * CIG[3]
+                        * c.OIG2 * powc(ilami, c.BV_I))
+        vti_n = guarded("ice_fall", valid_i, rhof * c.AV_I * CIG[6]
+                        / CIG[7] * powc(ilami, c.BV_I))
         vtik = _fill_down(vti_m, valid_i)
         vtnik = _fill_down(vti_n, valid_i)
         qiten, niten, ri, ni, pptice = sweep(vtik, vtik, vtnik, qiten, niten,
@@ -1400,8 +1427,8 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
         vts_melt = torch.maximum(vts * vts_boost,
                                  vts * ((vtrk - vts * vts_boost)
                                         / (temp - c.T_0)))
-        vts_eff = torch.where(temp > (c.T_0 + 0.1), vts_melt,
-                              vts * vts_boost)
+        vts_eff = guarded("snow_fall", valid_s, torch.where(
+            temp > (c.T_0 + 0.1), vts_melt, vts * vts_boost))
         vtsk = _fill_down(vts_eff, valid_s)
         qsten, _, rs, _, pptsnow = sweep(vtsk, vtsk, None, qsten, None, rs,
                                          None, c.R1, c.R1, gate)
@@ -1409,7 +1436,8 @@ def _post_rates(state: ColumnState, pres, dzq, p8, pro, cfg: MicroConfig,
         # graupel (f90:3321-3343, 3553-3578)
         valid_g = rg > c.R1
         vtg = rhof * c.AV_G * CGG[6] * c.OGG3 * powc(ilamg, c.BV_G)
-        vtg_eff = torch.where(temp > c.T_0, torch.maximum(vtg, vtrk), vtg)
+        vtg_eff = guarded("graupel_fall", valid_g, torch.where(
+            temp > c.T_0, torch.maximum(vtg, vtrk), vtg))
         vtgk = _fill_down(vtg_eff, valid_g)
         qgten, _, rg, _, pptgraul = sweep(vtgk, vtgk, None, qgten, None, rg,
                                           None, c.R1, c.R1, gate)

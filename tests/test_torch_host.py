@@ -6,6 +6,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -160,6 +161,50 @@ def test_kernel_budget_imports_neither_jax_nor_reference_package():
     assert "chip_smoke" in mods
     for mod in mods:
         assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
+
+
+def test_kernel_budget_builds_every_kernel_with_its_budget_macros():
+    import kernel_budget as K
+    from kid_tpu_torch.micro import cuda_build
+    built = {p.stem for p in cuda_build.SRC_DIR.glob("*.cu")}
+    assert set(K.STEMS) == built == set(K.BUDGET_MACROS)
+    header = (cuda_build.SRC_DIR / "thompson.cuh").read_text()
+    for macros in K.BUDGET_MACROS.values():
+        assert len(macros) == 4
+        for m in macros:
+            assert f"#ifndef {m}\n#define {m} " in header, m
+    # instantiation labels from the mangled names cuobjdump prints
+    t = K._TEMPLATE.search("_ZN12_GLOBAL__N_118fused_rates_kernelIfLb0ELb1"
+                           "ELi128EEEvPKT_PS1_iidddii")
+    assert t.group(1).endswith("fused_rates") and t.groups()[1:] == (
+        "f", "0", "1", "128")
+    t = K._TEMPLATE.search("_ZN46_GLOBAL__N__3dda1021_13_fused_post_cu_6149"
+                           "acc917fused_post_kernelIdLb1ELb0EEEvPKT_PS1_S4_")
+    assert t.groups()[1:] == ("d", "1", "0", None)
+
+
+def test_kernel_budget_counts_sass_instructions(monkeypatch):
+    import subprocess
+
+    import kernel_budget as K
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_115fused_post_kernelIfLb0ELb0ELi128EEEvPKT_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00 */
+                                                            /* 0x00 */
+        /*0010*/                   MUFU.RSQ R2, R3 ;        /* 0x00 */
+        /*0020*/              @!P2 DADD R4, R4, -0.5 ;      /* 0x00 */
+        /*0030*/                   F2F.F32.F64 R8, UR4 ;    /* 0x00 */
+        /*0040*/                   DSETP.GEU.AND P2, PT, |R4|, UR4, PT ;
+        /*0050*/                   NOP ;                    /* 0x00 */
+\t\tFunction : _ZN12_GLOBAL__N_115fused_post_kernelIdLb1ELb1ELi256EEEvPKT_
+        /*0000*/                   DFMA R2, R4, R6, R8 ;    /* 0x00 */
+"""
+    monkeypatch.setattr(K, "cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: SimpleNamespace(
+        stdout=sass))
+    assert K.sass_counts(Path("lib.so")) == {
+        "f32 mixed rates=0 block=128": (5, 1, 1, 1),
+        "f64 warm  rates=1 block=256": (1, 0, 1, 0)}
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
