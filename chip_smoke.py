@@ -27,6 +27,10 @@ on failure:
      phase 2, mixed and warm, rate profiles on and off) with the
      table-stage channels built from the driver's provisional state, at
      a step inside the updraft pulse;
+  2d. ``fused_step`` against its plain version at the 2-D cases' nz 60
+     (blocks of 64 threads), float64 and float32, mixed and warm, rate
+     profiles on and off, on phase 2's seeded batch; its digests print
+     apart from phase 2's;
   3. the main path: mixed1 widened to 8192 columns x 120 levels in
      float32 through ``run_case`` (150 spin-up steps) and ``simulate``
      (50 steps into the updraft pulse, timed as 5 windows of 10 steps:
@@ -43,20 +47,38 @@ on failure:
      ``fused_kid_step`` alone, with the same checks, profile and timings,
      its ms/step printed beside phase 3's;
   4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
-     256 columns from a seeded state at step 150, 20 steps through the
-     kernel path and through the plain path, in float64; mixed1 and
-     warm1_recon through the fused driver the same way, and the fused
-     driver against the default kernel path on the nine scheme fields
-     and the precip (nc, nwfa and nifa differ by design and are printed,
-     not gated).
+     256 columns and orographic2d at its own 64 x 60, from a seeded state
+     at step 150, 20 steps through the kernel path and through the plain
+     path, in float64, and orographic2d once more with
+     KID_TPU_TORCH_FUSED_DRIVER=1, which a 2-D case ignores (the same
+     launches, bit-identical output); mixed1 and warm1_recon through the
+     fused driver the same way, and the fused driver against the default
+     kernel path on the nine scheme fields and the precip (nc, nwfa and
+     nifa differ by design and are printed, not gated);
+  5. the 2-D path: cumulus2d (warm) and orographic2d (mixed phase) at
+     their own 64 x 60 for all 900 steps in float32 through ``run_case``
+     (``fused_step`` once per step and no other kernel), then the same
+     run through ``simulate`` in timed windows (median and best, bit for
+     bit the same), a profile, scores against the float64 driver's
+     finals in ``validation_finals/`` with the budgets of the reference's
+     f32 validation, and ``fused_step`` timed on the path's last input;
+  5b. ``mp_driver_3d`` on a WRF-shaped (i, k, j) = (128, 120, 64) tile of
+     mixed1's sounding with phase 4's seeded layers: one ``fused_step``
+     launch a call, the result equal to ``batched_microphysics`` on the
+     same columns reshaped by hand, the accumulators and the vapor
+     repair, ms per call and the layout moves' share of it, then the
+     effective radii and ``refl_10cm`` on its output inside their
+     windows.
 
-Phases 2, 2b and 2c print a SHA-256 digest (first 16 hex digits) of each
-kernel's outputs on each batch, and a combined digest per kernel: the
-inputs are seeded and the kernels deterministic, so a change to a kernel
-that keeps its results bit for bit keeps the digests.
+Phases 2, 2b, 2c and 2d print a SHA-256 digest (first 16 hex digits) of
+each kernel's outputs on each batch, and a combined digest per kernel
+(phase 2d's apart): the inputs are seeded and the kernels deterministic,
+so a change to a kernel that keeps its results bit for bit keeps the
+digests.  The new phases print their seconds.
 
 Every kernel's launch count is set to 0 just before each main path is
-driven and read just after.  The line before the last two is the card's
+driven and read just after; ``fused_step``'s record in the kernels line
+adds its launches on each path (``launches_by_path``).  The line before the last two is the card's
 name and power limit, then one JSON line describing every kernel, then
 ``{"ok": true, "device": ...}``.
 """
@@ -69,10 +91,13 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+ROOT = Path(__file__).resolve().parent
 
 # f32 peak outside the tensor cores and memory rate of an H100 SXM
 # (NVIDIA data sheet), used for the kernel's bound
@@ -90,6 +115,13 @@ VS_PLAIN = [(120, torch.float64), (120, torch.float32),
             (130, torch.float64), (130, torch.float32),
             (33, torch.float64), (64, torch.float64), (97, torch.float64),
             (256, torch.float64)]
+# phase 2d: the 2-D cases' nz, blocks of 64 threads, in both dtypes; its
+# digests print apart, so that phase 2's combined digest repeats
+VS_PLAIN_2D = [(60, torch.float64), (60, torch.float32)]
+# phase 5b: the WRF-shaped (i, k, j) tile, 8192 columns as in phase 3
+WRF_TILE = (128, 120, 64)
+# phase 5: windows of the 2-D runs (steps per window)
+N_WINDOW_2D = 90
 
 
 def card_line() -> str:
@@ -202,12 +234,17 @@ def flat(res):
     return out
 
 
-def phase_kernel_vs_plain(dev, digests):
+PPT = ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice")
+
+
+def phase_kernel_vs_plain(dev, digests, shapes=VS_PLAIN, key="fused_step"):
+    """``fused_step`` against its plain version on the seeded batches of
+    ``shapes``, digests recorded and printed under ``key``."""
     from kid_tpu_torch.config import MicroConfig
     from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.micro.fused_step import fused_step, fused_step_ref
     from kid_tpu_torch.tables.cache import get_tables
-    for nz, dtype in VS_PLAIN:
+    for nz, dtype in shapes:
         for cfg in (MicroConfig(iiwarm=False), MicroConfig(iiwarm=True)):
             tables = S.device_tables(get_tables(iiwarm=cfg.iiwarm), dtype,
                                      dev)
@@ -223,11 +260,11 @@ def phase_kernel_vs_plain(dev, digests):
                 worst = equiv_report(flat(got), flat(ref), noise)
                 label = (f"nz={nz} {'warm ' if cfg.iiwarm else 'mixed'} "
                          f"{str(dtype)[6:]} rates={int(want_rates)}")
-                d = record_digest(digests, "fused_step", label, flat(got))
+                d = record_digest(digests, key, label, flat(got))
                 print(f"kernel vs plain  {label}: worst normalised error "
                       f"{worst:.3e} (limit {noise:g}), digest {d}",
                       flush=True)
-    print_digests(digests, "fused_step")
+    print_digests(digests, key)
 
 
 def kid_step_inputs(case, dtype, dev, istep=150):
@@ -242,7 +279,9 @@ def kid_step_inputs(case, dtype, dev, istep=150):
     from kid_tpu_torch.tables.cache import get_tables
     grid, cfg = case.grid(), case.micro
     st = KidState(*[t.to(dtype) for t in seeded_state(case, dev)])
-    m = case.time_modulation(istep * case.dt)
+    # m in float64 for every dtype: phase 2c's inputs, and so its digests,
+    # do not depend on how the driver rounds m
+    m = case.time_modulation(istep, torch.float64)
 
     def prof(a):
         return torch.tensor(np.array(a), dtype=dtype, device=dev)
@@ -450,6 +489,25 @@ def read_counts() -> dict:
     return {k: fn.launches for k, fn in kernels().items()}
 
 
+def recording(packers):
+    """Replace each (module, name) packer by one that keeps its last
+    output in the returned dict; returns (dict, restore)."""
+    last, originals = {}, []
+    for mod, name in packers:
+        fn = getattr(mod, name)
+        originals.append((mod, name, fn))
+
+        def rec(*args, _fn=fn, _name=name):
+            last[_name] = _fn(*args)
+            return last[_name]
+        setattr(mod, name, rec)
+
+    def restore():
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    return last, restore
+
+
 def run_main_path(dev, card, case, path_kernels, packers):
     """Spin-up, then 50 timed steps of ``case`` at full width in float32
     with every launch count set to 0 just before and read just after;
@@ -458,7 +516,7 @@ def run_main_path(dev, card, case, path_kernels, packers):
     (module, function name) of the kernels' input packers: the last input
     of each is kept.  Returns (launch counts, last inputs by packer, median
     ms/step)."""
-    from kid_tpu_torch.driver.loop import KidState, run_case, simulate
+    from kid_tpu_torch.driver.loop import run_case, simulate
     from kid_tpu_torch.micro.solver import device_tables
     from kid_tpu_torch.tables.cache import get_tables
 
@@ -471,18 +529,7 @@ def run_main_path(dev, card, case, path_kernels, packers):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype, dev)
 
-    last = {}
-    originals = {}
-    for mod, name in packers:
-        fn = getattr(mod, name)
-        originals[(mod, name)] = fn
-
-        def recording(*args, _fn=fn, _name=name):   # keeps the last input
-            x = _fn(*args)
-            last[_name] = x
-            return x
-
-        setattr(mod, name, recording)
+    last, restore = recording(packers)
     window_ms, ppts = [], []
     final = st
     reset_counts()
@@ -499,25 +546,18 @@ def run_main_path(dev, card, case, path_kernels, packers):
             ppts.append(out)
     finally:
         counts = read_counts()
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
+        restore()
     step_ms = float(np.median(window_ms))
     for k, n in counts.items():
         want = n_timed if k in path_kernels else 0
         if n != want:
             raise AssertionError(f"{case.name}: {n} {k} launches in "
                                  f"{n_timed} steps, expected {want}")
-    for f in KidState._fields:
-        v = getattr(final, f)
-        if not torch.isfinite(v).all():
-            raise AssertionError(f"main path: non-finite {f}")
-        if f not in ("theta",) and float(v.min()) < 0.0:
-            raise AssertionError(f"main path: negative {f}")
+    check_finite_nonnegative(case.name, final._asdict())
     rain = 0.0
     for out in ppts:
-        for p in (out.ppt_rain, out.ppt_snow, out.ppt_graupel, out.ppt_ice):
-            if not torch.isfinite(p).all() or float(p.min()) < 0.0:
-                raise AssertionError("main path: bad precip stream")
+        check_finite_nonnegative(case.name,
+                                 {k: getattr(out, k) for k in PPT})
         rain += float(out.ppt_rain.sum())
     best_ms = min(window_ms)
     launches = ", ".join(f"{counts[k]} {k}" for k in path_kernels)
@@ -538,12 +578,13 @@ def run_main_path(dev, card, case, path_kernels, packers):
 
 
 def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
-                  got_want, res):
+                  got_want, res, where="the main path's input"):
     """Time ``launch`` (the kernel) and ``plain`` (its plain version) on
     the main path's input ``x`` (a packed tensor, or a tuple of them),
     bound the work, check the two agree under the f32 knife-edge model;
     returns the kernels-line record, with ``res``, the resources of the
-    kernel's main-path instantiation (phase 1)."""
+    kernel's main-path instantiation (phase 1).  ``where`` names the input
+    in the printed line."""
     got, want = got_want()
     worst = equiv_report(got, want, 1e-3)
     max_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
@@ -557,7 +598,7 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
     n_bytes = sum(t.numel() * t.element_size() for t in ins) + n_out_bytes
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     ops_ms = counter.ops / PEAK_F32_OPS * 1e3
-    print(f"{name} at the main path's input {tuple(x.shape[1:])} f32: "
+    print(f"{name} at {where} {tuple(x.shape[1:])} f32: "
           f"{ms:.4f} ms/launch, plain version {plain_ms:.3f} ms, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f} MB -> "
           f"{bytes_ms:.4f} ms, {counter.ops / 1e9:.2f} G elementwise ops "
@@ -631,7 +672,7 @@ def phase_fused_driver_main_path(dev, card, default_ms, res):
     # the last timed step's
     x, prof = last["pack_kid_inputs"]
     cfg, dt_f = case.micro, case.dt
-    m = case.time_modulation((N_SPIN + N_TIMED - 1) * dt_f)
+    m = case.time_modulation(N_SPIN + N_TIMED - 1, x.dtype)
     ncol, nz = x.shape[1:]
     st_in = KidState(*x[:12])
     tv = dict(zip(S.tv_keys(cfg), x[12:]))
@@ -810,11 +851,16 @@ def phase_end_to_end(dev):
     import kid_tpu_torch.micro.fused_step as F
     import kid_tpu_torch.micro.split_step as A
     from kid_tpu_torch.driver.cases import CASES
-    from kid_tpu_torch.driver.loop import simulate
+    from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, KidState, simulate
     from kid_tpu_torch.micro.solver import device_tables
     from kid_tpu_torch.tables.cache import get_tables
-    for name in ("mixed1", "warm1_recon", "aerosol1d"):
-        case = dataclasses.replace(CASES[name], nx=E2E_NX)
+    # the 1-D cases widened; orographic2d (mixed phase, x-advection) at its
+    # own width, which sets its circulation
+    cases = [dataclasses.replace(CASES[name], nx=E2E_NX)
+             for name in ("mixed1", "warm1_recon", "aerosol1d")]
+    cases.append(CASES["orographic2d"])
+    for case in cases:
+        name = case.name
         tables = device_tables(get_tables(iiwarm=case.micro.iiwarm),
                                torch.float64, dev)
         st0 = seeded_state(case, dev)
@@ -841,7 +887,7 @@ def phase_end_to_end(dev):
                 setattr(mod, k, fn)
         torch.cuda.synchronize()
         worst = equiv_report(k_st._asdict(), p_st._asdict(), 1e-8)
-        for k in ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice"):
+        for k in PPT:
             a = getattr(k_out, k).cpu().numpy()
             b = getattr(p_out, k).cpu().numpy()
             np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-20,
@@ -850,6 +896,32 @@ def phase_end_to_end(dev):
               f"path vs plain path worst normalised error {worst:.3e} "
               f"(limit 1e-8), precip streams within rtol 1e-8, rain "
               f"{float(k_out.ppt_rain.sum()):.4e}", flush=True)
+        if case.is_1d:
+            continue
+        # the fused driver switch leaves a 2-D case on the default path
+        os.environ[FUSED_DRIVER_ENV] = "1"
+        try:
+            n0 = read_counts()
+            f_st, f_out = simulate(st0, tables, case, 20, istep0=150,
+                                   device=dev)
+            n1 = read_counts()
+        finally:
+            del os.environ[FUSED_DRIVER_ENV]
+        launched = {k: n1[k] - n0[k] for k in n1}
+        if launched != {k: 20 if k == "fused_step" else 0 for k in n1}:
+            raise AssertionError(f"{name} with {FUSED_DRIVER_ENV}=1: "
+                                 f"launches {launched}")
+        for f in KidState._fields:
+            if not torch.equal(getattr(f_st, f), getattr(k_st, f)):
+                raise AssertionError(f"{name} with {FUSED_DRIVER_ENV}=1: "
+                                     f"{f} differs")
+        for k in PPT:
+            if not torch.equal(getattr(f_out, k), getattr(k_out, k)):
+                raise AssertionError(f"{name} with {FUSED_DRIVER_ENV}=1: "
+                                     f"{k} differs")
+        print(f"end to end {name} with {FUSED_DRIVER_ENV}=1: launches "
+              f"{launched}, state and precip bit-identical to the default "
+              f"kernel path", flush=True)
 
 
 def phase_fused_driver_end_to_end(dev):
@@ -887,7 +959,7 @@ def phase_fused_driver_end_to_end(dev):
         worst = equiv_report(k_st._asdict(), p_st._asdict(), 1e-8)
         worst_d = equiv_report({f: getattr(k_st, f) for f in scheme},
                                {f: getattr(d_st, f) for f in scheme}, 1e-8)
-        for k in ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice"):
+        for k in PPT:
             a = getattr(k_out, k).cpu().numpy()
             for other, label in ((p_out, "plain"), (d_out, "default")):
                 np.testing.assert_allclose(
@@ -906,6 +978,291 @@ def phase_fused_driver_end_to_end(dev):
               f"|default|: {', '.join(drift)}", flush=True)
 
 
+def check_finite_nonnegative(label, tensors: dict):
+    for k, v in tensors.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{label}: non-finite {k}")
+        if float(v.min()) < 0.0:
+            raise AssertionError(f"{label}: negative {k}")
+
+
+def phase_2d(dev, card):
+    """cumulus2d and orographic2d at their own size for their full length
+    in float32 through ``run_case``, then again through ``simulate`` in
+    timed windows (bit for bit the same run); launch counts, outputs,
+    profile, scores against the float64 anchors, and ``fused_step`` on the
+    path's last input.  Returns {case: fused_step launches}."""
+    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.driver.cases import CUMULUS2D, OROGRAPHIC2D
+    from kid_tpu_torch.driver.loop import (KidState, initial_state, run_case,
+                                           simulate)
+    from kid_tpu_torch.micro import cuda_build
+    from kid_tpu_torch.micro.solver import device_tables, tv_keys
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+    from kid_tpu_torch.validation.scores import score_2d_f32
+
+    dtype, names = torch.float32, KidState._fields
+    launches = {}
+    for case in (CUMULUS2D, OROGRAPHIC2D):
+        n, cfg = case.n_steps, case.micro
+        t0 = time.perf_counter()
+        reset_counts()
+        final, streams = run_case(case, dtype, profile_diags=names,
+                                  device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        run_s = time.perf_counter() - t0
+        if counts != {k: n if k == "fused_step" else 0 for k in counts}:
+            raise AssertionError(f"{case.name}: launches {counts} in {n} "
+                                 f"steps, expected {n} fused_step only")
+        launches[case.name] = counts["fused_step"]
+        check_finite_nonnegative(case.name, {
+            **final._asdict(), **{k: getattr(streams, k) for k in PPT},
+            **streams.profiles})
+
+        # the same run in windows through simulate
+        tables = device_tables(get_tables(iiwarm=cfg.iiwarm), dtype, dev)
+        st = initial_state(case, dtype, dev)
+        window_ms, outs = [], []
+        last, restore = recording([(F, "pack_inputs")])
+        try:
+            for w in range(n // N_WINDOW_2D):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                st, out = simulate(st, tables, case, N_WINDOW_2D, names,
+                                   istep0=w * N_WINDOW_2D, device=dev)
+                e1.record()
+                torch.cuda.synchronize()
+                window_ms.append(e0.elapsed_time(e1) / N_WINDOW_2D)
+                outs.append(out)
+                if w == 0:          # profiled below, inside the flow's rise
+                    st_first = st
+        finally:
+            restore()
+        for f in names:
+            if not torch.equal(getattr(st, f), getattr(final, f)):
+                raise AssertionError(f"{case.name}: windowed run differs "
+                                     f"from run_case in {f}")
+        for k in PPT:
+            if not torch.equal(torch.cat([getattr(o, k) for o in outs]),
+                               getattr(streams, k)):
+                raise AssertionError(f"{case.name}: windowed {k} differs")
+        step_ms = float(np.median(window_ms))
+        print(f"2-D {case.name} ({case.nx}, {case.nz}) f32, {n} steps: "
+              f"run_case {run_s:.1f} s with {launches[case.name]} fused_step "
+              f"launches and no other kernel; {len(window_ms)} windows of "
+              f"{N_WINDOW_2D} steps through simulate, bit for bit the same: "
+              f"median {step_ms:.3f} ms/step ({case.nx * 1e3 / step_ms:.0f} "
+              f"column-steps/s), best {min(window_ms):.3f} ms/step, windows "
+              f"{' '.join(f'{m:.3f}' for m in window_ms)} ms/step [{card}]",
+              flush=True)
+        profile_steps(dev, card, st_first, tables, case, N_WINDOW_2D,
+                      step_ms, ("fused_step",))
+
+        # scores against the float64 driver's full-size finals
+        grid = case.grid()
+        anchor = np.load(ROOT / "validation_finals"
+                         / f"{case.name}_2dfp64.npz")
+
+        def host(t):
+            return t.double().cpu().numpy()
+
+        entry = score_2d_f32(
+            case.name, grid.rho0, grid.dz,
+            {f: host(v) for f, v in initial_state(
+                case, dtype, dev)._asdict().items()},
+            {f: host(getattr(final, f)) for f in names},
+            {k[4:]: host(getattr(streams, k)) for k in PPT},
+            {f: host(streams.profiles[f]).mean(0) for f in names}, anchor)
+        print(f"2-D {case.name} f32 against the f64 anchor: cumulative "
+              f"precip {entry['cum_ppt_rain_rel']:.3e} (budget 2e-2), final "
+              f"water paths wvp {entry['final_wvp_rel']:.3e} lwp "
+              f"{entry['final_lwp_rel']:.3e} iwp {entry['final_iwp_rel']:.3e} "
+              f"(2.5e-2), time-mean profiles "
+              f"{entry['tmean_prof_worst_rel']:.3e} (4e-2), closure "
+              f"{entry['closure']:.3e} (1e-2), worst final field "
+              f"{entry['worst_target_field_rel']:.3e} (not gated), rain "
+              f"{float(streams.ppt_rain.double().sum()):.4e} kg/m^2 x cols",
+              flush=True)
+        if not entry["pass"]:
+            raise AssertionError(f"{case.name}: over a budget {entry}")
+
+        # the kernel and its plain version on the path's last input
+        x = last["pack_inputs"]
+        st_in = ColumnState(*x[:12])
+        tv = dict(zip(tv_keys(cfg), x[14:]))
+        ncol, nz = x.shape[1:]
+        out_bytes = (12 * ncol * nz + 4 * ncol) * x.element_size()
+
+        def plain(x=x, st_in=st_in, tv=tv, cfg=cfg):
+            return F.fused_step_ref(st_in, x[12], x[13], tv, cfg, case.dt,
+                                    False)
+
+        def got_want(x=x, cfg=cfg, plain=plain):
+            y, ppt = F.launch_packed(x, cfg, case.dt, False)
+            ref = plain()
+            torch.cuda.synchronize()
+            return flat(F.unpack_outputs(y, ppt, False)), flat(ref)
+
+        res = cuda_build.resources("fused_step", nz, dtype, cfg.iiwarm, False)
+        kernel_record("fused_step", card, x,
+                      lambda x=x, cfg=cfg: F.launch_packed(x, cfg, case.dt,
+                                                           False),
+                      plain, out_bytes, n, got_want, res,
+                      f"{case.name}'s last input "
+                      f"({'warm' if cfg.iiwarm else 'mixed'}, "
+                      f"{res['regs']} regs, {res['blocks_per_sm']} blocks "
+                      f"of {(nz + 31) // 32 * 32} threads/SM)")
+    return launches
+
+
+def wrf_tile(dev, dtype=torch.float32):
+    """mixed1's sounding with phase 4's seeded hydrometeor layers as a
+    WRF_TILE (i, k, j) tile: the arguments of ``mp_driver_3d`` up to the
+    accumulators, and the seeded accumulators."""
+    from kid_tpu_torch.driver.cases import MIXED1
+    ni_, nk, nj = WRF_TILE
+    case = dataclasses.replace(MIXED1, nx=ni_ * nj, nz=nk)
+    grid = case.grid()
+    st = seeded_state(case, dev)
+
+    def ikj(cols):
+        cols = torch.as_tensor(cols, dtype=dtype, device=dev).expand(
+            ni_ * nj, nk)
+        return torch.movedim(cols.reshape(ni_, nj, nk), -1, 1).contiguous()
+
+    args = tuple(ikj(getattr(st, k)) for k in (
+        "qv", "qc", "qr", "qi", "qs", "qg", "ni", "nr", "theta"))
+    args += (ikj(grid.exner), ikj(grid.pres),
+             ikj(seeded_w(ni_ * nj, nk, 0, dtype, dev)), ikj(grid.dz))
+    rng = np.random.default_rng(3)
+    acc = tuple(torch.tensor(rng.uniform(0.0, 2.0, (ni_, nj)), dtype=dtype,
+                             device=dev) for _ in range(3))
+    return args, case.dt, acc, case.micro
+
+
+def phase_wrf(dev, card):
+    """``mp_driver_3d`` on a WRF-shaped tile: one ``fused_step`` launch a
+    call, the result against ``batched_microphysics`` on the same columns
+    reshaped by hand, the accumulators, the vapor repair, ms per call and
+    the layout moves' share, then the moment diagnostics on its output.
+    Returns the launches of one call."""
+    from kid_tpu_torch.diag.moments import refl_10cm
+    from kid_tpu_torch.driver import wrf_adapter as W
+    from kid_tpu_torch.micro import ColumnState, batched_microphysics
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    args, dt, acc, cfg = wrf_tile(dev)
+    tables = device_tables(get_tables(iiwarm=cfg.iiwarm), torch.float32,
+                           dev)
+
+    def call(eff=False):
+        return W.mp_driver_3d(*args, dt, *acc, tables, cfg,
+                              want_eff_rad=eff, device=dev)
+
+    reset_counts()
+    fields, precip, _ = call()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != {k: int(k == "fused_step") for k in counts}:
+        raise AssertionError(f"mp_driver_3d: launches {counts}")
+
+    # by hand: (i, k, j) -> (i*j, k) columns, the column solver, back
+    qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz = args
+    ni_, nk, nj = qv.shape
+
+    def cols(a):
+        return a.permute(0, 2, 1).reshape(ni_ * nj, nk)
+
+    def back(a):
+        return a.reshape(ni_, nj, nk).permute(0, 2, 1)
+
+    t = cols(th) * cols(pii)
+    rho = 0.622 * cols(p) / (287.04 * t * (cols(qv) + 0.622))
+    state = ColumnState(t=t, qv=cols(qv), qc=cols(qc), qi=cols(qi),
+                        qr=cols(qr), qs=cols(qs), qg=cols(qg), ni=cols(ni),
+                        nr=cols(nr), nc=cfg.nt_c / rho, nwfa=11.1e6 / rho,
+                        nifa=0.5e6 * 0.01 / rho)
+    out, ppt, _ = batched_microphysics(state, cols(p), cols(w), cols(dz), dt,
+                                       tables, cfg, want_rates=False,
+                                       device=dev)
+    torch.cuda.synchronize()
+    for k in ("qc", "qr", "qi", "qs", "qg", "ni", "nr"):
+        if not torch.equal(fields[k], back(getattr(out, k))):
+            raise AssertionError(f"mp_driver_3d: {k} differs from the "
+                                 f"columns run by hand")
+    if not torch.equal(fields["th"], back(out.t) / pii):
+        raise AssertionError("mp_driver_3d: th differs")
+    neg = back(out.qv) < 0.0
+    if not (torch.equal(fields["qv"][~neg], back(out.qv)[~neg])
+            and bool((fields["qv"][neg] >= 1.0e-7).all())):
+        raise AssertionError("mp_driver_3d: qv repair")
+    p_ra, p_sn, p_gr, p_ic = (a.reshape(ni_, nj) for a in ppt)
+    rainncv = p_ra + p_sn + p_gr + p_ic
+    for got, want in ((precip.rainncv, rainncv),
+                      (precip.rainnc, acc[0] + rainncv),
+                      (precip.snownc, acc[1] + p_sn + p_ic),
+                      (precip.graupelnc, acc[2] + p_gr)):
+        if not torch.equal(got, want):
+            raise AssertionError("mp_driver_3d: accumulators")
+    sr = precip.sr
+    if not (torch.isfinite(sr).all() and float(sr.min()) >= 0.0
+            and float(sr.max()) <= 1.0 + 1e-6):
+        raise AssertionError("mp_driver_3d: snow ratio out of [0, 1]")
+    check_finite_nonnegative("mp_driver_3d", fields)
+
+    # ms per call, and the two layout moves (in, out) alone
+    ms = time_ms(call, 20)
+    ins = args
+    outs = [back(getattr(out, k)) for k in
+            ("qv", "qc", "qr", "qi", "qs", "qg", "ni", "nr", "t")]
+    in_ms = time_ms(lambda: [W._ikj_to_cols(a) for a in ins], 20)
+    out_ms = time_ms(lambda: [W._cols_to_ikj(cols(a), ni_, nj)
+                              for a in outs], 20)
+    print(f"mp_driver_3d on an (i, k, j) = {tuple(qv.shape)} f32 tile "
+          f"(mixed phase, {ni_ * nj} columns): {ms:.3f} ms/call, 1 "
+          f"fused_step launch a call; layout moves (i,k,j) -> columns "
+          f"{in_ms:.3f} ms, columns -> (i,k,j) {out_ms:.3f} ms, "
+          f"{(in_ms + out_ms) / ms:.3f} of the call; equal to the columns "
+          f"run by hand; rain {float(precip.rainncv.double().sum()):.4e}, "
+          f"snow ratio max {float(sr.max()):.3f} [{card}]", flush=True)
+
+    # the moment diagnostics on its output
+    fields, _, eff = call(eff=True)
+    windows = {"re_cloud": (2.49e-6, 50.0e-6), "re_ice": (4.99e-6, 125.0e-6),
+               "re_snow": (9.99e-6, 999.0e-6)}
+    for k, (lo, hi) in windows.items():
+        v = eff[k]
+        lo, hi = torch.tensor([lo, hi], dtype=v.dtype).tolist()
+        if not (torch.isfinite(v).all() and float(v.min()) >= lo
+                and float(v.max()) <= hi):
+            raise AssertionError(f"mp_driver_3d: {k} outside [{lo}, {hi}]")
+    f = {k: cols(v) for k, v in fields.items()}
+    dbz = refl_10cm(f["qv"], f["qc"], f["qr"], f["nr"], f["qs"], f["qg"],
+                    f["th"] * cols(pii), cols(p))
+    if not (torch.isfinite(dbz).all() and float(dbz.min()) > -40.0
+            and float(dbz.max()) < 80.0):
+        raise AssertionError("refl_10cm outside (-40, 80) dBZ")
+    print("mp_driver_3d diagnostics: "
+          + ", ".join(f"{k} {float(eff[k].min()) * 1e6:.2f}-"
+                      f"{float(eff[k].max()) * 1e6:.2f} um"
+                      for k in windows)
+          + f"; refl_10cm {float(dbz.min()):.1f} to {float(dbz.max()):.1f} "
+          f"dBZ, {float((dbz > 0).double().mean()):.3f} of cells above 0",
+          flush=True)
+    return counts
+
+
+def timed(phase, fn, *args):
+    """``fn(*args)``, with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -922,11 +1279,17 @@ def main() -> int:
     phase_kernel_vs_plain(dev, digests)
     phase_split_vs_plain(dev, digests)
     phase_kid_step_vs_plain(dev, digests)
+    timed("2d", phase_kernel_vs_plain, dev, digests, VS_PLAIN_2D,
+          "fused_step nz=60")
     records, default_ms = phase_main_path(dev, card, res)
     records += phase_aerosol_main_path(dev, card, res)
     records += phase_fused_driver_main_path(dev, card, default_ms, res)
-    phase_end_to_end(dev)
+    timed("4", phase_end_to_end, dev)
     phase_fused_driver_end_to_end(dev)
+    by_path = {"mixed1": records[0]["launches"]}
+    by_path.update(timed("5", phase_2d, dev, card))
+    by_path["mp_driver_3d"] = timed("5b", phase_wrf, dev, card)["fused_step"]
+    records[0]["launches_by_path"] = by_path
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)

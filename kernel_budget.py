@@ -270,25 +270,6 @@ def split_batches(dev, stems):
     return out
 
 
-def recording(packers):
-    """Replace each (module, name) packer by one that keeps its last
-    output in the returned dict; returns (dict, restore)."""
-    last, originals = {}, []
-    for mod, name in packers:
-        fn = getattr(mod, name)
-        originals.append((mod, name, fn))
-
-        def rec(*args, _fn=fn, _name=name):
-            last[_name] = _fn(*args)
-            return last[_name]
-        setattr(mod, name, rec)
-
-    def restore():
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-    return last, restore
-
-
 def timed_inputs(dev, stems):
     """[(label, stem, launch)] at (8192, 120): the main paths' own inputs
     after the spin-up (float32), then seeded warm and float64 batches."""
@@ -305,8 +286,8 @@ def timed_inputs(dev, stems):
         case = dataclasses.replace(MIXED1, nx=C.MAIN_NX)
         st, _ = run_case(case, F32, n_steps=C.N_SPIN, device=dev)
         tables = S.device_tables(get_tables(iiwarm=False), F32, dev)
-        last, restore = recording([(F, "pack_inputs"),
-                                   (FK, "pack_kid_inputs")])
+        last, restore = C.recording([(F, "pack_inputs"),
+                                     (FK, "pack_kid_inputs")])
         try:
             if "fused_step" in stems:
                 simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev)
@@ -326,7 +307,7 @@ def timed_inputs(dev, stems):
                                                 False)))
         if "fused_kid_step" in stems:
             kx, prof = last["pack_kid_inputs"]
-            m = case.time_modulation(C.N_SPIN * case.dt)
+            m = case.time_modulation(C.N_SPIN, F32)
             out.append((label, "fused_kid_step",
                         lambda: FK.launch_kid_packed(kx, prof, m, case.micro,
                                                      case.dt, False)))
@@ -334,8 +315,8 @@ def timed_inputs(dev, stems):
         case = dataclasses.replace(AEROSOL1D, nx=C.MAIN_NX)
         st, _ = run_case(case, F32, n_steps=C.N_SPIN, device=dev)
         tables = S.device_tables(get_tables(iiwarm=False), F32, dev)
-        last, restore = recording([(A, "pack_rates_inputs"),
-                                   (A, "pack_post_inputs")])
+        last, restore = C.recording([(A, "pack_rates_inputs"),
+                                     (A, "pack_post_inputs")])
         try:
             simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev)
         finally:

@@ -6,6 +6,7 @@ counterpart of ``python -m kid_tpu``).
     python -m kid_tpu_torch run mixed1 --steps 300 --dtype f32 --ncol 128 \\
         --out diags.npz --profiles qc,qr,prr_wau
     python -m kid_tpu_torch run warm1_recon --device cpu --steps 12
+    python -m kid_tpu_torch run cumulus2d --device cpu --steps 3
 
 ``run`` integrates the full pipeline: case setup (driver/cases.py), table
 build/cache, the time loop (driver/loop.py), the save_dg diagnostics
@@ -13,6 +14,7 @@ registry (diag/registry.py) and its npz / classic-NetCDF sinks, and
 optional checkpointing (utils/checkpoint.py).  It runs on the card unless
 ``--device cpu`` is given; with KID_TPU_TORCH_FUSED_DRIVER=1 in the
 environment a 1-D non-aerosol case goes through the fused driver step.
+``--ncol`` widens 1-D cases only: a 2-D case's width sets its circulation.
 """
 from __future__ import annotations
 
@@ -66,13 +68,9 @@ def _run(args) -> int:
                 state = type(state)(*[x.to(dtype) for x in state])
                 print(f"  resumed from checkpoint step {istep0}")
 
-    try:
-        final, streams = simulate(state, tables, case, n_steps - istep0,
-                                  profile_diags=profiles, istep0=istep0,
-                                  device=dev)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    final, streams = simulate(state, tables, case, n_steps - istep0,
+                              profile_diags=profiles, istep0=istep0,
+                              device=dev)
     total = float(streams.ppt_rain.double().sum())
     wall = time.time() - t0
     print(f"  done in {wall:.1f}s "

@@ -1,11 +1,13 @@
-"""Flux-form vertical transport by the prescribed kinematic flow (twin of
-``kid_tpu/driver/advection.py``, the z direction of the 1-D cases).
+"""Flux-form transport by the prescribed kinematic flow (twin of
+``kid_tpu/driver/advection.py``).
 
 The KiD shell's ``d*_adv`` / ``d*_div`` tendencies (consumed at
 mphys_thompson09n.f90:60-93): second-order MUSCL reconstruction with a van
-Leer limiter on face mass fluxes rho0*w, zero flux at the bottom and top,
-plus the 1-D divergence closure ``q * div(rho0 w)/rho0`` that turns the
-flux form into pure advection.
+Leer limiter on face mass fluxes rho0*w and rho0*u.  Vertically: zero flux
+at the bottom and top, plus the 1-D divergence closure
+``q * div(rho0 w)/rho0`` that turns the flux form into pure advection.
+Horizontally (2-D cases): periodic in x; the stream-function fluxes are
+exactly non-divergent, so there is no closure term.
 """
 from __future__ import annotations
 
@@ -61,3 +63,39 @@ def divergence_tendency_z(q, rhow_face, rho0, dz):
     """KiD 1-D mass-compensation term d*_div = q * div(rho0 w)/rho0."""
     flux = _zero_end_faces(rhow_face)
     return q * (flux[..., 1:] - flux[..., :-1]) / (rho0 * dz)
+
+
+def advective_tendency_x_padded(q_padded, rhou_face, rho0, dx):
+    """x-transport of a tracer padded with 2 ghost columns each side.
+
+    Args:
+      q_padded:  (..., ncol+4, nz) tracer, ghosts filled periodically (or
+                 by a halo exchange when the columns are split).
+      rhou_face: (ncol+1, nz) horizontal mass flux at the local x-faces.
+      rho0:      (nz,) center density.
+      dx:        scalar spacing.
+    """
+    qx = torch.movedim(q_padded, -2, -1)               # (..., nz, ncol+4)
+    fx = rhou_face.transpose(0, 1)                     # (nz, ncol+1)
+    fx_ext = torch.cat([fx[..., :1], fx, fx[..., -1:]], -1)
+    qf = _muscl_face_values(qx, fx_ext)[..., 1:-1]
+    flux = fx * qf
+    ten = -(flux[..., 1:] - flux[..., :-1]) / (rho0[:, None] * dx)
+    return torch.movedim(ten, -1, -2)
+
+
+def advective_tendency_x(q, rhou_face, rho0, dx):
+    """d(q)/dt = -(1/rho0) d(F_x q)/dx, F_x = rho0*u at x-faces; periodic.
+
+    Args:
+      q:         (ncol, nz) tracer.
+      rhou_face: (ncol+1, nz) horizontal mass flux at x-faces
+                 (rhou_face[0] == rhou_face[ncol], the periodic face).
+      rho0:      (nz,) center density.
+      dx:        scalar spacing.
+
+    2 ghost cells per side give every retained face a full MUSCL stencil,
+    so both copies of the periodic face get the same flux.
+    """
+    qpad = torch.cat([q[-2:], q, q[:2]], 0)
+    return advective_tendency_x_padded(qpad, rhou_face, rho0, dx)

@@ -21,6 +21,7 @@ import math
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ..config import MicroConfig
 from .grid import Grid, make_grid
@@ -95,11 +96,22 @@ class Case:
         psi = self._psi(grid)
         return -np.diff(psi, axis=1) / grid.dz[None, :]  # (nx+1, nz)
 
-    def time_modulation(self, t: float) -> float:
-        """Scalar m(t) of a Python float time (host side)."""
+    def time_modulation(self, istep: int, dtype=torch.float64) -> float:
+        """Scalar m(t) at step ``istep`` (host side), rounded as the
+        reference's compiled step rounds it in the state's ``dtype``:
+        ``t = dtype(istep) * dtype(dt)``, then ``sin(t * (pi * (1/t1)))``
+        or ``min(t * (1/t1), 1)``, with the constant products folded in
+        ``dtype``.  The sine is taken in double and rounded once, as the
+        reference's CPU sine does to within one f32 ulp (exact in f64).
+        The result is a Python float holding the ``dtype`` value."""
+        rnd = np.float32 if dtype == torch.float32 else np.float64
+        t = rnd(istep) * rnd(self.dt)
+        inv_t1 = rnd(1.0 / self.t1)
         if self.modulation == "pulse":
-            return math.sin(math.pi * t / self.t1) if t < self.t1 else 0.0
-        return min(t / self.t1, 1.0)                  # ramp to steady
+            if not t < rnd(self.t1):
+                return 0.0
+            return float(rnd(math.sin(t * (rnd(math.pi) * inv_t1))))
+        return float(min(t * inv_t1, rnd(1.0)))       # ramp to steady
 
     @property
     def n_steps(self) -> int:

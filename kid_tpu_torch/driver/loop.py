@@ -1,5 +1,5 @@
 """KiD time loop: prescribed-flow advection -> microphysics -> update
-(twin of ``kid_tpu/driver/loop.py`` for the 1-D cases).
+(twin of ``kid_tpu/driver/loop.py``, 1-D and 2-D cases).
 
 The adapter contract of mphys_thompson09n.f90:28-310 is kept:
 
@@ -10,9 +10,9 @@ The adapter contract of mphys_thompson09n.f90:28-310 is kept:
     ``x + (adv + div + mphys)*dt`` telescopes, :198-245).
 
 The loop is a Python loop over steps.  The time modulation m(t) is computed
-on the host from the step index, and the per-step precip and profile
-streams are written into device tensors, so a step never waits for the
-device.
+on the host from the step index, in the state's dtype as the reference
+rounds it, and the per-step precip and profile streams are written into
+device tensors, so a step never waits for the device.
 """
 from __future__ import annotations
 
@@ -28,11 +28,9 @@ from ..micro import ColumnState, batched_microphysics
 from ..micro import solver as S
 from ..micro.solver import device_tables
 from ..tables.cache import get_tables
-from .advection import advective_tendency_z, divergence_tendency_z
+from .advection import (advective_tendency_x_padded, advective_tendency_z,
+                        divergence_tendency_z)
 from .cases import Case
-
-# Where the cases the port does not run yet will come from.
-_TODO_2D = "2-D cases are not ported yet (ROADMAP.md, Queue 1 item 6)"
 
 # The opt-in fused driver step (micro/fused_kid_step.py) for 1-D,
 # non-aerosol cases: set to "1" to turn it on.
@@ -134,13 +132,16 @@ def advected_fields(cfg) -> tuple:
     return ("theta", "qv", "qc", "qr", "nr", "qi", "ni", "qs", "qg")
 
 
-def make_step(case: Case, tables, dtype, device, w_pat, pres2,
-              profile_names: tuple):
+def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
+              pad_x, profile_names: tuple):
     """The per-step function (advect -> microphysics -> update).
 
     Args:
-      w_pat:  (nx, nz+1) rho0*w z-face pattern.
-      pres2:  (nx, nz) pressure.
+      w_pat:       (nx, nz+1) rho0*w z-face pattern.
+      u_pat_faces: (nx+1, nz) rho0*u' x-face pattern; None for 1-D cases.
+      pres2:       (nx, nz) pressure.
+      pad_x:       callable (n_adv, nx, nz) -> (n_adv, nx+4, nz) adding 2
+                   ghost columns per side; unused for 1-D cases.
       profile_names: from ``resolve_profile_names``.
     Returns ``step(state, istep) -> (new state, (4, nx) precip, profiles)``.
     """
@@ -159,14 +160,16 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
     dt = case.dt
     odt = 1.0 / dt
     cfg = case.micro
+    one_d = case.is_1d
     want_rates = any(n in RATE_NAMES for n in profile_names)
     # The fused driver step (advection of all 12 channels, provisional
     # state, Exner map and phases 2-20 in one kernel) is opt-in, as in the
-    # reference, which measured it slower than the default there.  The
-    # table stage still reads this step's provisional state, built from
+    # reference, which measured it slower than the default there.  It
+    # advects in z only, so 2-D cases never take it.  The table stage
+    # still reads this step's provisional state, built from
     # ``advected_fields`` only, so nc/nwfa/nifa differ from the default
     # path's (ROADMAP.md, Queue 3).
-    fused_driver = (not cfg.is_aerosol_aware
+    fused_driver = (one_d and not cfg.is_aerosol_aware
                     and os.environ.get(FUSED_DRIVER_ENV, "0") == "1")
     if fused_driver:     # imported here: the module imports this one
         from ..micro.fused_kid_step import fused_kid_step
@@ -174,11 +177,18 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
     adv_idx = tuple(KidState._fields.index(f) for f in adv_fields)
 
     def step(st: KidState, istep: int):
-        m = case.time_modulation(istep * dt)
+        m = case.time_modulation(istep, dtype)
         w_face = m * w_pat                       # rho0*w at z-faces
         q = torch.stack([st[i] for i in adv_idx])
-        ten = (advective_tendency_z(q, w_face, rho0, dz)
-               + divergence_tendency_z(q, w_face, rho0, dz))
+        # 1-D: flux form plus the divergence closure; 2-D: the
+        # stream-function fluxes are non-divergent, so x-advection instead
+        ten = advective_tendency_z(q, w_face, rho0, dz)
+        if one_d:
+            ten = ten + divergence_tendency_z(q, w_face, rho0, dz)
+        else:
+            u_face = case.u0 * rho0[None, :] + m * u_pat_faces
+            ten = ten + advective_tendency_x_padded(pad_x(q), u_face, rho0,
+                                                    case.dx)
         prov = q + ten * dt
         w_cent = None                  # cell-centred w, for activation
         if cfg.is_aerosol_aware:
@@ -226,25 +236,31 @@ def make_step(case: Case, tables, dtype, device, w_pat, pres2,
 
 def simulate(state0: KidState, tables, case: Case, n_steps: int,
              profile_diags=False, istep0: int = 0, device="cuda"):
-    """Run ``n_steps`` of a 1-D case from ``state0``; returns
+    """Run ``n_steps`` of a case from ``state0``; returns
     (final KidState, StepOutputs).  ``istep0`` is the number of steps
     already taken, so a run can be chunked over several calls.  Every
     tensor must lie on ``device``; raises without a GPU unless
     ``device="cpu"``."""
-    if not case.is_1d:
-        raise NotImplementedError(_TODO_2D)
     dev = resolve_device(device)
     for t in state0:
         check_on(t, dev)
     grid = case.grid()
     dtype = state0.qv.dtype
     shape = (case.nx, case.nz)
-    pres2 = torch.broadcast_to(
-        torch.as_tensor(grid.pres, dtype=dtype).to(dev), shape)
-    w_pat = torch.as_tensor(np.ascontiguousarray(case.rhow_pattern(grid)),
-                            dtype=dtype).to(dev)
+
+    def pattern(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
+
+    pres2 = torch.broadcast_to(pattern(grid.pres), shape)
+    w_pat = pattern(case.rhow_pattern(grid))
+    u_pat = None if case.is_1d else pattern(case.rhou_pattern(grid))
+
+    def pad_x(q):        # periodic: wrap 2 columns from each end
+        return torch.cat([q[:, -2:], q, q[:, :2]], 1)
+
     names = resolve_profile_names(profile_diags)
-    step = make_step(case, tables, dtype, dev, w_pat, pres2, names)
+    step = make_step(case, tables, dtype, dev, w_pat, u_pat, pres2, pad_x,
+                     names)
     ppt = torch.empty((n_steps, 4, case.nx), dtype=dtype, device=dev)
     profiles = {n: torch.empty((n_steps,) + shape, dtype=dtype, device=dev)
                 for n in names}

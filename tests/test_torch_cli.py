@@ -1,8 +1,8 @@
 """The port's ``python -m kid_tpu_torch`` entry on the CPU
 (``--device cpu``): case listing, an end-to-end run with the NetCDF sink
-and checkpoint/resume (the scenarios of tests/test_cli.py), the fused
-driver switch, the constants-fingerprint guard, and the NetCDF writer and
-fingerprint against the JAX package's."""
+and checkpoint/resume (the scenarios of tests/test_cli.py), a 2-D run,
+the fused driver switch, the constants-fingerprint guard, and the NetCDF
+writer and fingerprint against the JAX package's."""
 from __future__ import annotations
 
 import json
@@ -19,8 +19,11 @@ from scipy.io import netcdf_file
 from kid_tpu.diag.registry import registry_from_run as j_registry_from_run
 from kid_tpu.tables.cache import constants_fingerprint as j_fingerprint
 from kid_tpu_torch.diag.registry import registry_from_run
-from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, KidState, StepOutputs
-from kid_tpu_torch.tables.cache import constants_fingerprint
+from kid_tpu_torch.driver.cases import CASES
+from kid_tpu_torch.driver.loop import (FUSED_DRIVER_ENV, KidState,
+                                       StepOutputs, initial_state, simulate)
+from kid_tpu_torch.micro.solver import device_tables
+from kid_tpu_torch.tables.cache import constants_fingerprint, get_tables
 from kid_tpu_torch.utils.checkpoint import RunCheckpointer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,10 +122,26 @@ def test_cli_fused_driver_run(tmp_path):
     assert not np.array_equal(fused["nwfa"], default["nwfa"])
 
 
-def test_cli_2d_case_exits_nonzero():
-    out = _cli("run", "cumulus2d", "--steps", "1", "--device", "cpu")
-    assert out.returncode != 0
-    assert "ROADMAP" in out.stderr
+def test_cli_runs_2d_case(tmp_path):
+    """cumulus2d at its own width (64 x 60): the streams written are
+    ``simulate``'s on the same state, and ``--ncol`` leaves it as it is."""
+    nc_path = str(tmp_path / "x.nc")
+    out = _cli("run", "cumulus2d", "--steps", "3", "--device", "cpu",
+               "--ncol", "8", "--profiles", "qc,theta,dqv_mphys",
+               "--out", nc_path)
+    _ok(out)
+    assert "nx=64 nz=60" in out.stdout
+    case = CASES["cumulus2d"]
+    tabs = device_tables(get_tables(iiwarm=True), torch.float32, "cpu")
+    _, want = simulate(initial_state(case, torch.float32, "cpu"), tabs, case,
+                       3, ("qc", "theta", "dqv_mphys"), device="cpu")
+    for k in ("qc", "theta", "dqv_mphys"):
+        got = _read_nc(nc_path, k)
+        assert got.shape == (3, 64, 60), k
+        np.testing.assert_array_equal(got, want.profiles[k].numpy(),
+                                      err_msg=k)
+    np.testing.assert_array_equal(_read_nc(nc_path, "surface_ppt_for_rain_x"),
+                                  want.ppt_rain.numpy())
 
 
 def test_constants_fingerprint_matches_jax():

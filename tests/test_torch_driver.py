@@ -135,13 +135,3 @@ def test_chunked_istep0_equals_one_run():
     for k in names:
         assert torch.equal(torch.cat([p1.profiles[k], p2.profiles[k]]),
                            w_out.profiles[k]), k
-
-
-def test_simulate_rejects_cases_not_ported():
-    tabs = None
-    for name in ("cumulus2d",):
-        case = tcases.CASES[name]
-        st = KidState(*[torch.zeros(case.nx, case.nz, dtype=torch.float64)]
-                      * 12)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            simulate(st, tabs, case, 1, device="cpu")

@@ -56,7 +56,7 @@ def _step_inputs(name):
     jcase = dataclasses.replace(jcases.CASES[name], nx=NX)
     grid, cfg = jcase.grid(), jcase.micro
     st = _seeded_state(jcase)
-    m = tcases.CASES[name].time_modulation(ISTEP0 * jcase.dt)
+    m = tcases.CASES[name].time_modulation(ISTEP0, torch.float64)
     w_face = m * torch.as_tensor(np.array(jcase.rhow_pattern(grid)))
     rho0, dz = torch.as_tensor(grid.rho0), torch.as_tensor(grid.dz)
     prov = {k: torch.as_tensor(v) for k, v in st.items()}
