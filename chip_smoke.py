@@ -68,7 +68,22 @@ on failure:
      same columns reshaped by hand, the accumulators and the vapor
      repair, ms per call and the layout moves' share of it, then the
      effective radii and ``refl_10cm`` on its output inside their
-     windows.
+     windows;
+  6a. distribution: cumulus2d at its 64 x 60 for all 900 steps in float32
+     in one process and on 2 ranks of the card (``dist.launch``, gloo,
+     halo slabs staged through the host), the same bits, the sharded run
+     scored as the reference's ``cumulus2d_sharded`` row;
+  6b. the flagship, cumulus2d at 131072 x 60 (2048 copies of its
+     64-column circulation) in float32: 150 spin-up steps, 20 steps timed
+     and profiled, ``simulate``'s set-up, ``fused_step`` on the path's
+     last input, then the same 20 steps on 2 ranks from the spun-up
+     state, the same bits; ms/step, column-steps/s, the exchange's share
+     of a rank's step and peak device memory;
+  7. the five 1-D cases at full length in float32 through
+     ``validation.cases``, against the oracle's float64 finals in
+     ``validation_finals/`` with the reference's fixed budgets, the
+     perturbed (chaos) member for mixed1, deep1 and aerosol1d;
+  8. one run of ``python -m kid_tpu_torch.bench``, its JSON line printed.
 
 Phases 2, 2b, 2c and 2d print a SHA-256 digest (first 16 hex digits) of
 each kernel's outputs on each batch, and a combined digest per kernel
@@ -77,8 +92,9 @@ so a change to a kernel that keeps its results bit for bit keeps the
 digests.  The new phases print their seconds.
 
 Every kernel's launch count is set to 0 just before each main path is
-driven and read just after; ``fused_step``'s record in the kernels line
-adds its launches on each path (``launches_by_path``).  The line before the last two is the card's
+driven and read just after (the ranks of phase 6 count their own); the
+kernels line adds each kernel's launches on every other path
+(``launches_by_path``).  The line before the last two is the card's
 name and power limit, then one JSON line describing every kernel, then
 ``{"ok": true, "device": ...}``.
 """
@@ -122,6 +138,12 @@ VS_PLAIN_2D = [(60, torch.float64), (60, torch.float32)]
 WRF_TILE = (128, 120, 64)
 # phase 5: windows of the 2-D runs (steps per window)
 N_WINDOW_2D = 90
+# phase 6: ranks on the one card; the flagship (bench_scaling_r05.py:38)
+N_RANKS = 2
+FLAGSHIP_NX, FLAGSHIP_SPIN, FLAGSHIP_STEPS = 131072, 150, 20
+# phase 7: the cases that also run the perturbed (chaos) member, those
+# of the reference's chaos envelope (VALIDATION_r05.json)
+CHAOS_CASES = ("mixed1", "deep1", "aerosol1d")
 
 
 def card_line() -> str:
@@ -473,20 +495,18 @@ def time_ms(fn, reps):
 
 def kernels():
     """Every kernel wrapper of the port by name (each has a launch count)."""
-    import kid_tpu_torch.micro.fused_kid_step as FK
-    import kid_tpu_torch.micro.fused_step as F
-    import kid_tpu_torch.micro.split_step as A
-    return {"fused_step": F.fused_step, "fused_rates": A.fused_rates,
-            "fused_post": A.fused_post, "fused_kid_step": FK.fused_kid_step}
+    from kid_tpu_torch.micro import cuda_build
+    return cuda_build.wrappers()
 
 
 def reset_counts():
-    for fn in kernels().values():
-        fn.launches = 0
+    from kid_tpu_torch.micro import cuda_build
+    cuda_build.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in kernels().items()}
+    from kid_tpu_torch.micro import cuda_build
+    return cuda_build.launch_counts()
 
 
 def recording(packers):
@@ -1255,6 +1275,213 @@ def phase_wrf(dev, card):
     return counts
 
 
+def phase_sharded_2d(dev, card):
+    """cumulus2d at its own 64 x 60 for all 900 steps in float32 in one
+    process and on N_RANKS ranks on this card (gloo, halo slabs staged
+    through the host): the same bits, and the sharded run scored as the
+    reference's ``cumulus2d_sharded`` row.  Returns the ranks' summed
+    launches."""
+    from kid_tpu_torch.driver.cases import CUMULUS2D
+    from kid_tpu_torch.validation import twod
+    case = CUMULUS2D
+    t0 = time.perf_counter()
+    one = twod.run_2d(case, torch.float32, dev)
+    t1 = time.perf_counter()
+    many = twod.run_2d_sharded(case, N_RANKS, torch.float32, dev)
+    t2 = time.perf_counter()
+    n = case.n_steps
+    if one["launches"] != {k: n if k == "fused_step" else 0
+                           for k in one["launches"]}:
+        raise AssertionError(f"cumulus2d: launches {one['launches']}")
+    for r in many["ranks"]:
+        if r["launches"] != {k: n if k == "fused_step" else 0
+                             for k in r["launches"]}:
+            raise AssertionError(f"rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {n} fused_step")
+        if r["exchange_calls"] != n:
+            raise AssertionError(f"rank {r['rank']}: {r['exchange_calls']} "
+                                 f"halo exchanges in {n} steps")
+    if not twod.same_bits(one, many):
+        diffs = {f: float(np.abs(one["final"][f] - many["final"][f]).max())
+                 for f in one["final"]}
+        raise AssertionError(f"cumulus2d on {N_RANKS} ranks differs from "
+                             f"one process: {diffs}")
+    entry = twod.score(case, many)
+    ranks = many["ranks"]
+    own = ", ".join(f"{r['seconds']:.1f}" for r in ranks)
+    share = ", ".join(f"{r['exchange_seconds'] / r['seconds']:.3f}"
+                      for r in ranks)
+    print(f"sharded cumulus2d ({case.nx}, {case.nz}) f32, {n} steps on "
+          f"{N_RANKS} ranks ({', '.join(r['device'] for r in ranks)}, gloo, "
+          f"host-staged halos): bit for bit the single-process run (finals "
+          f"and the four precip series); one process {t1 - t0:.1f} s, "
+          f"{N_RANKS} ranks {t2 - t1:.1f} s with spawning (the ranks' own "
+          f"runs {own} s, the exchange {share} of them); "
+          f"{many['launches']['fused_step']} fused_step launches in all "
+          f"[{card}]", flush=True)
+    print("  " + twod.line("cumulus2d_sharded", entry), flush=True)
+    if not entry["pass"]:
+        raise AssertionError(f"cumulus2d_sharded over a budget: {entry}")
+    return many["launches"]["fused_step"]
+
+
+def phase_flagship(dev, card):
+    """The flagship: cumulus2d widened to FLAGSHIP_NX columns at its 60
+    levels in float32, FLAGSHIP_SPIN spin-up steps, then FLAGSHIP_STEPS
+    steps timed in one process (after the same window once untimed) and
+    profiled, ``fused_step`` on the path's last input, and the same steps
+    on N_RANKS ranks of this card from the spun-up state: the same bits.
+    Returns the timed window's ``fused_step`` launches."""
+    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.dist import launch
+    from kid_tpu_torch.driver.cases import CUMULUS2D
+    from kid_tpu_torch.driver.loop import initial_state, simulate
+    from kid_tpu_torch.micro import cuda_build
+    from kid_tpu_torch.micro.solver import device_tables, tv_keys
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+    case = dataclasses.replace(CUMULUS2D, nx=FLAGSHIP_NX,
+                               cell_nx=CUMULUS2D.nx)
+    dtype, n, i0 = torch.float32, FLAGSHIP_STEPS, FLAGSHIP_SPIN
+    torch.cuda.reset_peak_memory_stats(dev)
+    tables = device_tables(get_tables(iiwarm=True), dtype, dev)
+    t0 = time.perf_counter()
+    st, _ = simulate(initial_state(case, dtype, dev), tables, case, i0,
+                     device=dev)
+    simulate(st, tables, case, n, istep0=i0, device=dev)
+    torch.cuda.synchronize()
+    spin_s = time.perf_counter() - t0
+    last, restore = recording([(F, "pack_inputs")])
+    reset_counts()
+    try:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        final, out = simulate(st, tables, case, n, istep0=i0, device=dev)
+        e1.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        counts = read_counts()
+        restore()
+    step_ms = e0.elapsed_time(e1) / n
+    peak = torch.cuda.max_memory_allocated(dev)
+    # what a call of simulate costs before its first step: the flow
+    # patterns built on the host and copied to the card
+    t0 = time.perf_counter()
+    simulate(st, tables, case, 0, istep0=i0, device=dev)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    if counts != {k: n if k == "fused_step" else 0 for k in counts}:
+        raise AssertionError(f"flagship: launches {counts} in {n} steps")
+    check_finite_nonnegative("flagship", {
+        **final._asdict(), **{k: getattr(out, k) for k in PPT}})
+    print(f"flagship cumulus2d ({case.nx}, {case.nz}) f32: spin-up {i0} "
+          f"steps and the window once untimed in {spin_s:.1f} s; {n} steps "
+          f"from step {i0}: {step_ms:.3f} ms/step (events; host clock "
+          f"{wall_ms:.3f}), {case.nx * 1e3 / step_ms:.0f} column-steps/s, "
+          f"of which simulate's set-up (a 0-step call) {setup_ms:.1f} ms, "
+          f"{setup_ms / n:.3f} ms/step; "
+          f"{counts['fused_step']} fused_step launches and no other kernel; "
+          f"peak device memory {peak / 2**30:.2f} GiB; qc max "
+          f"{float(final.qc.max()):.3e}, rain in the window "
+          f"{float(out.ppt_rain.double().sum()):.4e} [{card}]", flush=True)
+    profile_steps(dev, card, final, tables, case, i0 + n, step_ms,
+                  ("fused_step",))
+
+    # fused_step and its plain version on the path's last input
+    x = last["pack_inputs"]
+    cfg = case.micro
+    st_in = ColumnState(*x[:12])
+    tv = dict(zip(tv_keys(cfg), x[14:]))
+    ncol, nz = x.shape[1:]
+    res = cuda_build.resources("fused_step", nz, dtype, True, False)
+
+    def plain():
+        return F.fused_step_ref(st_in, x[12], x[13], tv, cfg, case.dt, False)
+
+    def got_want():
+        y, ppt = F.launch_packed(x, cfg, case.dt, False)
+        ref = plain()
+        torch.cuda.synchronize()
+        return flat(F.unpack_outputs(y, ppt, False)), flat(ref)
+
+    kernel_record("fused_step", card, x,
+                  lambda: F.launch_packed(x, cfg, case.dt, False), plain,
+                  (12 * ncol * nz + 4 * ncol) * x.element_size(), n,
+                  got_want, res, f"the flagship's last input (warm, "
+                  f"{res['regs']} regs, {res['blocks_per_sm']} blocks of "
+                  f"{(nz + 31) // 32 * 32} threads/SM)")
+    del last, x, st_in, tv
+
+    # the same window on the ranks, from the spun-up state
+    t0 = time.perf_counter()
+    sharded = launch.run_sharded(case, N_RANKS, n, dtype,
+                                 *launch.default_layout(N_RANKS, dev),
+                                 istep0=i0, state0=st, warmup_steps=n)
+    ranks_s = time.perf_counter() - t0
+    diffs = {f: float(np.abs(getattr(final, f).cpu().numpy()
+                             - sharded.fields[f]).max())
+             for f in final._fields
+             if not np.array_equal(getattr(final, f).cpu().numpy(),
+                                   sharded.fields[f])}
+    diffs.update({k: 1.0 for k in PPT if not np.array_equal(
+        getattr(out, k).cpu().numpy(), sharded.ppt[k])})
+    if diffs:
+        raise AssertionError(f"flagship on {N_RANKS} ranks differs from one "
+                             f"process: {diffs}")
+    for r in sharded.ranks:
+        if r["launches"]["fused_step"] != n or r["exchange_calls"] != n:
+            raise AssertionError(f"flagship rank {r['rank']}: {r}")
+    rank_ms = ", ".join(f"{r['seconds'] * 1e3 / n:.3f}" for r in sharded.ranks)
+    share = ", ".join(f"{r['exchange_seconds'] / r['seconds']:.3f}"
+                      for r in sharded.ranks)
+    rank_peak = ", ".join(f"{r['peak_bytes'] / 2**30:.2f}"
+                          for r in sharded.ranks)
+    print(f"flagship on {N_RANKS} ranks "
+          f"({', '.join(r['device'] for r in sharded.ranks)}, gloo, "
+          f"host-staged halos), the same {n} steps from the spun-up state: bit for bit "
+          f"the single-process run (finals and the four precip series); "
+          f"{ranks_s:.1f} s with spawning and {n} warm-up steps; each rank's "
+          f"window {rank_ms} ms/step (host clock, both ranks sharing the "
+          f"card), the exchange {share} of it, peak device memory "
+          f"{rank_peak} GiB [{card}]", flush=True)
+    return counts["fused_step"]
+
+
+def phase_validation(dev, card):
+    """The five 1-D cases at full length in float32, scored against the
+    oracle's float64 finals with the reference's fixed f32 budgets, the
+    chaos member for CHAOS_CASES.  Returns {case: launches}."""
+    from kid_tpu_torch.validation import cases as V
+    launches, failed = {}, []
+    for name in V.RUNS:
+        e = V.validate_case(name, torch.float32, dev,
+                            chaos=name in CHAOS_CASES)
+        launches[name] = e["launches"]
+        print(V.summary_line(name, e)
+              + f"; launches {e['launches']} [{card}]", flush=True)
+        want = {"fused_rates", "fused_post"} if name == "aerosol1d" else {
+            "fused_step"}
+        if e["launches"] != {k: e["n_steps"] if k in want else 0
+                             for k in e["launches"]}:
+            raise AssertionError(f"{name}: launches {e['launches']}")
+        if not e["pass"]:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"over an f32 budget: {failed}")
+    return launches
+
+
+def phase_bench(dev):
+    """One run of ``python -m kid_tpu_torch.bench`` in this process; its
+    JSON line is printed as it prints it."""
+    from kid_tpu_torch import bench
+    if bench.main([]) != 0:
+        raise AssertionError("bench failed")
+
+
 def timed(phase, fn, *args):
     """``fn(*args)``, with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -1289,7 +1516,16 @@ def main() -> int:
     by_path = {"mixed1": records[0]["launches"]}
     by_path.update(timed("5", phase_2d, dev, card))
     by_path["mp_driver_3d"] = timed("5b", phase_wrf, dev, card)["fused_step"]
+    by_path["cumulus2d_2_ranks"] = timed("6a", phase_sharded_2d, dev, card)
+    by_path["flagship_window"] = timed("6b", phase_flagship, dev, card)
+    validation = timed("7", phase_validation, dev, card)
+    timed("8", phase_bench, dev)
     records[0]["launches_by_path"] = by_path
+    for name, counts in validation.items():
+        for r in records:
+            if counts[r["name"]]:
+                r.setdefault("launches_by_path", {})[
+                    f"validation_{name}"] = counts[r["name"]]
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)

@@ -1,0 +1,240 @@
+"""``simulate_sharded`` on spawned ranks (twin of ``run_multiproc.py`` and
+``multiproc_worker.py``).
+
+    python -m kid_tpu_torch.dist.launch --ranks 4 --device cpu
+    python -m kid_tpu_torch.dist.launch --ranks 2            # on the card
+
+runs a case (default cumulus2d, whole length, float64) once on one rank
+and once on ``--ranks`` ranks, and prints one JSON line saying whether the
+final fields and the rain series are the same bits; exits 1 if they are
+not, 2 if the run cannot start (e.g. no card without ``--device cpu``).
+
+``run_sharded`` does the work: the parent writes the tables and the
+initial state into a run directory once, starts one process per rank
+(``spawn``, a free local port), and each rank reads its block from there,
+runs ``simulate_sharded`` and gathers the result on rank 0, which writes
+it back.  The devices and the backend are chosen in the parent and passed
+to every rank: with one card every rank runs on ``cuda:0`` under gloo,
+its halo slabs staged through the host; with a card per rank, NCCL.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import socket
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+from ..driver.cases import CASES
+from ..driver.loop import KidState, initial_state
+from ..micro import cuda_build
+from ..micro.solver import device_tables
+from ..tables.builders import Tables
+from ..tables.cache import get_tables
+from .mesh import (PPT_NAMES, column_block, gather_state, halo_exchange_x,
+                   make_group, shard_state, simulate_sharded)
+
+
+class ShardedRun(NamedTuple):
+    """A sharded run gathered on rank 0, as numpy."""
+
+    fields: dict      # KidState field -> (nx, nz)
+    ppt: dict         # ppt_rain, ... -> (n_steps, nx)
+    profiles: dict    # stream name -> (n_steps, nx, nz)
+    ranks: list       # per rank: seconds, exchange calls and seconds,
+    #                   kernel launches, peak device bytes
+
+
+def default_layout(n_ranks: int, device="cuda") -> tuple:
+    """(devices, backend) for ``n_ranks`` ranks on ``device``'s kind: the
+    CPU under gloo; a card per rank under NCCL where the host has as many
+    cards; else every rank on one card under gloo.  A CUDA request
+    without a card raises."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return ["cpu"] * n_ranks, "gloo"
+    if 1 < n_ranks <= torch.cuda.device_count():
+        return [f"cuda:{i}" for i in range(n_ranks)], "nccl"
+    return [f"cuda:{dev.index or 0}"] * n_ranks, "gloo"
+
+
+def _case_spec(case) -> tuple:
+    """(name, changed fields) of ``case`` against the registered case of
+    its name: what a rank needs to rebuild it (cases hold lambdas, which
+    do not pickle)."""
+    base = CASES[case.name]
+    changed = {f.name: getattr(case, f.name)
+               for f in dataclasses.fields(case)
+               if getattr(case, f.name) != getattr(base, f.name)}
+    bad = [k for k, v in changed.items() if callable(v)]
+    if bad:
+        raise ValueError(f"a sharded run rebuilds the case from its name; "
+                         f"{bad} differ from {case.name}'s")
+    return case.name, changed
+
+
+def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
+               n_steps, istep0, profile_diags, warmup_steps, threads):
+    """One rank: its block of the state from ``run_dir``, optional warm-up
+    steps (discarded), then the run, timed on the host clock with the
+    kernels' launch counts and the exchange counters set to 0 just
+    before; rank 0 writes the gathered result and every rank's numbers
+    into ``run_dir``."""
+    torch.set_num_threads(threads)
+    run_dir = Path(run_dir)
+    name, changed = case_spec
+    case = dataclasses.replace(CASES[name], **changed)
+    dev = torch.device(devices[rank])
+    n = len(devices)
+    group = make_group(dev, backend, init_method, rank, n)
+    try:
+        with np.load(run_dir / "tables.npz") as z:
+            host_tables = Tables(**{k: z[k] for k in Tables._fields})
+        state0 = KidState(*torch.from_numpy(np.load(run_dir / "state0.npy")))
+        st = KidState(*[t.to(dev) for t in shard_state(state0, rank, n)])
+        tables = device_tables(host_tables, st.qv.dtype, dev)
+        if warmup_steps:
+            simulate_sharded(KidState(*[t.clone() for t in st]), tables,
+                             case, warmup_steps, group, False, istep0, dev)
+        cuda_build.reset_launch_counts()
+        halo_exchange_x.calls, halo_exchange_x.seconds = 0, 0.0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        final, streams = simulate_sharded(st, tables, case, n_steps, group,
+                                          profile_diags, istep0, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stats = dict(
+            rank=rank, device=str(dev), seconds=time.perf_counter() - t0,
+            exchange_calls=halo_exchange_x.calls,
+            exchange_seconds=halo_exchange_x.seconds,
+            launches=cuda_build.launch_counts(),
+            peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                        if dev.type == "cuda" else None))
+        gathered = gather_state(final, streams, group)
+        every = [None] * n
+        dist.all_gather_object(every, stats, group=group)
+        if rank == 0:
+            fields, ppt, profiles = gathered
+            np.savez(run_dir / "result.npz", **fields, **ppt,
+                     **{f"profile/{k}": v for k, v in profiles.items()})
+            (run_dir / "ranks.json").write_text(json.dumps(every))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def run_sharded(case, n_ranks: int, n_steps: int, dtype=torch.float64,
+                devices=None, backend=None, istep0: int = 0, state0=None,
+                profile_diags=False, warmup_steps: int = 0) -> ShardedRun:
+    """``n_steps`` of ``case`` from ``state0`` (default: the initial
+    sounding in ``dtype``) on ``n_ranks`` spawned ranks; returns rank 0's
+    gathered ``ShardedRun``.  ``devices`` (one per rank) and ``backend``
+    default to ``default_layout(n_ranks)``, which needs a card; pass
+    ``devices=["cpu"] * n_ranks`` to run on the CPU.  ``warmup_steps``
+    steps run first on every rank and are discarded, so that the timed
+    run (``ShardedRun.ranks``) does not hold first-call costs."""
+    layout = default_layout(n_ranks) if devices is None else None
+    devices = layout[0] if devices is None else list(devices)
+    backend = backend or (layout[1] if layout else "gloo")
+    devices = [str(resolve_device(d)) for d in devices]
+    if len(devices) != n_ranks:
+        raise ValueError(f"{len(devices)} devices for {n_ranks} ranks")
+    column_block(case.nx, 0, n_ranks)
+    spec = _case_spec(case)
+    if any(d.startswith("cuda") for d in devices):
+        cuda_build.build()      # once here, not in every rank
+    if state0 is None:
+        state0 = initial_state(case, dtype, "cpu")
+    state0 = np.stack([_host(torch.as_tensor(_host(a)).to(dtype))
+                       for a in state0])
+    with tempfile.TemporaryDirectory(prefix="kid_ranks_") as run_dir:
+        tables = get_tables(iiwarm=case.micro.iiwarm)
+        np.savez(Path(run_dir) / "tables.npz", **tables._asdict())
+        np.save(Path(run_dir) / "state0.npy", state0)
+        torch.multiprocessing.spawn(
+            _rank_main, nprocs=n_ranks, join=True, args=(
+                run_dir, devices, backend,
+                f"tcp://127.0.0.1:{_free_port()}", spec, n_steps, istep0,
+                profile_diags, warmup_steps,
+                max(1, torch.get_num_threads() // n_ranks)))
+        with np.load(Path(run_dir) / "result.npz") as z:
+            out = {k: z[k] for k in z.files}
+        ranks = json.loads((Path(run_dir) / "ranks.json").read_text())
+    return ShardedRun(
+        fields={k: out[k] for k in KidState._fields},
+        ppt={k: out[k] for k in PPT_NAMES},
+        profiles={k.split("/", 1)[1]: v for k, v in out.items()
+                  if k.startswith("profile/")},
+        ranks=ranks)
+
+
+def compare(a: ShardedRun, b: ShardedRun) -> dict:
+    """Per final field and rain series: bit-equal, and the largest
+    absolute difference."""
+    pairs = {**{k: (a.fields[k], b.fields[k]) for k in KidState._fields},
+             "ppt_rain": (a.ppt["ppt_rain"], b.ppt["ppt_rain"])}
+    return {k: {"bitwise_equal": bool(np.array_equal(x, y)),
+                "max_abs_diff": float(np.abs(x.astype(np.float64)
+                                             - y).max())}
+            for k, (x, y) in pairs.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m kid_tpu_torch.dist.launch",
+        description="A case on 1 rank against N ranks, bit for bit.")
+    ap.add_argument("--case", default="cumulus2d", choices=sorted(CASES))
+    ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps (default: the case's length)")
+    ap.add_argument("--dtype", default="float64",
+                    choices=("float32", "float64"))
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args(argv)
+    case = CASES[args.case]
+    n = case.n_steps if args.steps is None else args.steps
+    dtype = getattr(torch, args.dtype)
+    t0 = time.perf_counter()
+    try:
+        runs = [run_sharded(case, k, n, dtype,
+                            *default_layout(k, args.device))
+                for k in (1, args.ranks)]
+    except (RuntimeError, ValueError) as e:
+        print(f"launch: {e}", file=sys.stderr)
+        return 2
+    fields = compare(*runs)
+    same = all(v["bitwise_equal"] for v in fields.values())
+    print(json.dumps({
+        "case": case.name, "nx": case.nx, "nz": case.nz, "n_steps": n,
+        "dtype": args.dtype, "ranks": [1, args.ranks],
+        "devices": [r["device"] for r in runs[1].ranks],
+        "fields": fields, "bitwise_identical": same,
+        "seconds": round(time.perf_counter() - t0, 1)}))
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,210 @@
+"""Columns split over ranks with ``torch.distributed`` (twin of
+``kid_tpu/dist/mesh.py``).
+
+Each process is one rank.  Rank r of n owns the contiguous block of
+columns ``[r*nloc, (r+1)*nloc)``, ``nloc = nx / n``, with the whole
+vertical, on a ``torch.device`` given explicitly:
+
+  * the microphysics is column-parallel (the reference's serial
+    ``do i=1,nx`` loop, mphys_thompson09n.f90:54), so a step needs no
+    communication apart from
+  * the 2-column halo of the 2-D x-advection stencil: one ring exchange of
+    the stacked tracers per step (``halo_exchange_x``), the counterpart of
+    the reference's ``lax.ppermute`` pair.
+
+The vertical is never split.  Where a rank's result must equal the
+single-process run bit for bit, it is because every column sees the same
+operations on the same values; the exchange only moves values.
+"""
+from __future__ import annotations
+
+import time
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+from ..driver.advection import advective_tendency_x_padded
+from ..driver.loop import KidState, run_steps
+
+HALO = 2                 # ghost columns per side of the MUSCL x stencil
+# a rank that waits this long for the others gives up (a peer has died)
+TIMEOUT = timedelta(minutes=10)
+PPT_NAMES = ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice")
+
+
+def make_group(device, backend="gloo", init_method=None, rank=None,
+               world_size=None):
+    """The default process group, initialised here unless it already is,
+    with this rank's ``device`` checked against the backend; returns the
+    group.
+
+    gloo takes any device: CUDA tensors cross through host buffers (see
+    ``halo_exchange_x``), so several ranks may share one card.  NCCL needs
+    every rank on a card of its own; the devices of all ranks are
+    gathered and checked.  A CUDA device without a card raises."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            raise ValueError("name the card, e.g. 'cuda:0'")
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world_size, timeout=TIMEOUT)
+    group = dist.group.WORLD
+    backend = dist.get_backend(group)
+    devices = [None] * dist.get_world_size(group)
+    dist.all_gather_object(devices, str(dev), group=group)
+    if backend == "nccl":
+        if dev.type != "cuda" or len(set(devices)) != len(devices):
+            raise ValueError(f"NCCL needs one card per rank; the ranks ask "
+                             f"for {devices}")
+    elif backend != "gloo":
+        raise ValueError(f"backend {backend!r}: use 'gloo' or 'nccl'")
+    return group
+
+
+def column_block(nx: int, rank: int, world_size: int) -> tuple:
+    """(first, end) column of ``rank``'s block; raises unless the ranks
+    divide the columns evenly."""
+    if nx % world_size:
+        raise ValueError(f"{world_size} ranks do not divide {nx} columns")
+    nloc = nx // world_size
+    return rank * nloc, (rank + 1) * nloc
+
+
+def _via_host(t, group) -> bool:
+    """True where the group's backend cannot take ``t`` itself: gloo with
+    a CUDA tensor."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def halo_exchange_x(q, group, width: int = HALO, axis: int = 0):
+    """Ring exchange of ``width`` edge columns with both neighbours.
+
+    Returns (from_left, from_right): the left neighbour's rightmost and
+    the right neighbour's leftmost ``width`` columns of the periodic
+    domain.  ``axis`` is the column axis of ``q``, so a whole tracer
+    stack (n_adv, nloc, nz) goes in ONE send/recv pair per direction.
+    On one rank the periodic wrap is taken locally (P2P refuses sends to
+    oneself).
+
+    With gloo and a CUDA tensor, the two slabs are copied to a host
+    buffer, exchanged there and copied back, explicitly, here: that is
+    the path of several ranks on one card.  With NCCL the device tensors
+    themselves are sent.  ``halo_exchange_x.calls`` and ``.seconds``
+    (host clock, including the host copies and the wait for the device
+    they imply) add up every call."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    size = q.shape[axis]
+    right = q.narrow(axis, size - width, width)
+    left = q.narrow(axis, 0, width)
+    if n == 1:
+        out = right.clone(), left.clone()
+    else:
+        rank = dist.get_rank(group)
+        nxt = dist.get_global_rank(group, (rank + 1) % n)
+        prv = dist.get_global_rank(group, (rank - 1) % n)
+        host = _via_host(q, group)
+        slabs = torch.stack([right, left])       # one buffer, two slabs
+        if host:
+            slabs = slabs.cpu()
+        got = torch.empty_like(slabs)
+        # forward (tag 0): my right edge is my right neighbour's from_left;
+        # backward (tag 1): my left edge is my left neighbour's from_right.
+        # Two ranks are each other's both neighbours: the tags (gloo) and
+        # the order of the ops (NCCL) keep the two directions apart.
+        ops = [dist.P2POp(dist.isend, slabs[0], nxt, group, 0),
+               dist.P2POp(dist.isend, slabs[1], prv, group, 1),
+               dist.P2POp(dist.irecv, got[0], prv, group, 0),
+               dist.P2POp(dist.irecv, got[1], nxt, group, 1)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if host:
+            got = got.to(q.device)
+        out = got[0], got[1]
+    halo_exchange_x.calls += 1
+    halo_exchange_x.seconds += time.perf_counter() - t0
+    return out
+
+
+halo_exchange_x.calls = 0
+halo_exchange_x.seconds = 0.0
+
+
+def sharded_tendency_x(q, rhou_face_local, rho0, dx, group):
+    """Distributed x-advection of a (nloc, nz) tracer: halo exchange plus
+    the local MUSCL fluxes.  Both copies of a block-boundary face see the
+    same 4-cell stencil, so their fluxes are the same bits and the blocks
+    conserve mass together as the periodic seam does."""
+    left, right = halo_exchange_x(q, group, HALO, axis=0)
+    return advective_tendency_x_padded(torch.cat([left, q, right], 0),
+                                       rhou_face_local, rho0, dx)
+
+
+def simulate_sharded(state_local: KidState, tables, case, n_steps: int,
+                     group, profile_diags=False, istep0: int = 0,
+                     device="cuda"):
+    """Distributed twin of ``driver.loop.simulate``: the same
+    ``make_step`` physics on this rank's block of columns
+    (``state_local``, see ``shard_state``), the stacked tracers halo-
+    exchanged once per step.  The x flux is keyed on ``Case.is_1d``, so a
+    widened 1-D case gets none.  Returns this rank's (final KidState,
+    StepOutputs); ``gather_state`` collects them on rank 0."""
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    lo, hi = column_block(case.nx, rank, n)
+    if state_local.qv.shape[0] != hi - lo:
+        raise ValueError(f"rank {rank} holds {state_local.qv.shape[0]} "
+                         f"columns, its block is {hi - lo}")
+    grid = case.grid()
+    # this block's rows of the flow; the block's nloc+1 x-faces include
+    # the one it shares with its right neighbour
+    w_pat = case.rhow_pattern(grid)[lo:hi]
+    u_pat = None if case.is_1d else case.rhou_pattern(grid)[lo:hi + 1]
+
+    def pad_x(q):        # (n_adv, nloc, nz): one exchange for all tracers
+        left, right = halo_exchange_x(q, group, HALO, axis=1)
+        return torch.cat([left, q, right], 1)
+
+    return run_steps(state_local, tables, case, n_steps, profile_diags,
+                     istep0, device, w_pat, u_pat, pad_x)
+
+
+def shard_state(state: KidState, rank: int, world_size: int) -> KidState:
+    """``rank``'s block of the columns of a global ``KidState`` (e.g. from
+    ``convert.state_from_numpy``), as tensors of its own."""
+    lo, hi = column_block(state.qv.shape[0], rank, world_size)
+    return KidState(*[t[lo:hi].clone() for t in state])
+
+
+def _gather_cols(t, dim: int, group):
+    """Rank 0: the ranks' ``t`` concatenated along ``dim``, as numpy; the
+    other ranks: None."""
+    t = t.contiguous()
+    if _via_host(t, group):
+        t = t.cpu()
+    root = dist.get_global_rank(group, 0)
+    if dist.get_rank(group) != 0:
+        dist.gather(t, None, dst=root, group=group)
+        return None
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.gather(t, parts, dst=root, group=group)
+    return torch.cat(parts, dim).cpu().numpy()
+
+
+def gather_state(final: KidState, streams, group):
+    """Collects the ranks' final states and streams on rank 0 as numpy:
+    (fields {name: (nx, nz)}, ppt {ppt_*: (n_steps, nx)}, profiles
+    {name: (n_steps, nx, nz)}); None on the other ranks."""
+    fields = _gather_cols(torch.stack(list(final)), 1, group)
+    ppt = _gather_cols(torch.stack([getattr(streams, k) for k in PPT_NAMES]),
+                       2, group)
+    profiles = {k: _gather_cols(v, 1, group)
+                for k, v in streams.profiles.items()}
+    if fields is None:
+        return None
+    return (dict(zip(KidState._fields, fields)), dict(zip(PPT_NAMES, ppt)),
+            profiles)
+

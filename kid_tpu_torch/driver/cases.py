@@ -47,6 +47,11 @@ class Case:
     # None -> the reference's non-aerosol fills (f90:957-964)
     nwfa_init: Optional[Callable[[np.ndarray], np.ndarray]] = None
     nifa_init: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    # 2-D cases: columns per wavelength of the circulation; 0 is the
+    # domain (lx = nx * dx).  A domain widened with cell_nx at the case's
+    # own nx repeats its circulation nx / cell_nx times; widened without
+    # it, the circulation stretches with lx and its u grows with it.
+    cell_nx: int = 0
 
     def grid(self) -> Grid:
         zc = self.ztop / self.nz * (np.arange(self.nz) + 0.5)
@@ -61,7 +66,11 @@ class Case:
         """Stream function at cell corners, ((nx+1), (nz+1))."""
         zface = np.concatenate([[0.0], np.cumsum(grid.dz)])
         xf = np.arange(self.nx + 1) * self.dx
-        lx = self.nx * self.dx
+        cell = self.cell_nx or self.nx
+        if self.nx % cell:
+            raise ValueError(f"{self.nx} columns are not whole cells of "
+                             f"{cell}")
+        lx = cell * self.dx
         rho00 = grid.rho0[0]
         return (rho00 * self.w1 * lx / (2.0 * np.pi)
                 * np.sin(np.pi * zface / self.ztop)[None, :]

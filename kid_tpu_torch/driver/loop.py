@@ -241,27 +241,40 @@ def simulate(state0: KidState, tables, case: Case, n_steps: int,
     already taken, so a run can be chunked over several calls.  Every
     tensor must lie on ``device``; raises without a GPU unless
     ``device="cpu"``."""
+    grid = case.grid()
+    u_pat = None if case.is_1d else case.rhou_pattern(grid)
+
+    def pad_x(q):        # periodic: wrap 2 columns from each end
+        return torch.cat([q[:, -2:], q, q[:, :2]], 1)
+
+    return run_steps(state0, tables, case, n_steps, profile_diags, istep0,
+                     device, case.rhow_pattern(grid), u_pat, pad_x)
+
+
+def run_steps(state0: KidState, tables, case: Case, n_steps: int,
+              profile_diags, istep0: int, device, w_pat, u_pat_faces,
+              pad_x):
+    """The time loop of ``simulate`` over the columns that ``state0``
+    holds, which may be a block of the case's columns: ``w_pat`` (ncol,
+    nz+1) and ``u_pat_faces`` (ncol+1, nz; None for 1-D cases) are those
+    columns' rows of the case's flow patterns, as numpy arrays, and
+    ``pad_x`` fills their ghost columns (see ``make_step``)."""
     dev = resolve_device(device)
     for t in state0:
         check_on(t, dev)
     grid = case.grid()
     dtype = state0.qv.dtype
-    shape = (case.nx, case.nz)
+    shape = tuple(state0.qv.shape)
 
     def pattern(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
     pres2 = torch.broadcast_to(pattern(grid.pres), shape)
-    w_pat = pattern(case.rhow_pattern(grid))
-    u_pat = None if case.is_1d else pattern(case.rhou_pattern(grid))
-
-    def pad_x(q):        # periodic: wrap 2 columns from each end
-        return torch.cat([q[:, -2:], q, q[:, :2]], 1)
-
+    u_pat = None if u_pat_faces is None else pattern(u_pat_faces)
     names = resolve_profile_names(profile_diags)
-    step = make_step(case, tables, dtype, dev, w_pat, u_pat, pres2, pad_x,
-                     names)
-    ppt = torch.empty((n_steps, 4, case.nx), dtype=dtype, device=dev)
+    step = make_step(case, tables, dtype, dev, pattern(w_pat), u_pat, pres2,
+                     pad_x, names)
+    ppt = torch.empty((n_steps, 4, shape[0]), dtype=dtype, device=dev)
     profiles = {n: torch.empty((n_steps,) + shape, dtype=dtype, device=dev)
                 for n in names}
     st = state0

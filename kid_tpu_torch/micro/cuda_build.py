@@ -235,3 +235,24 @@ def build() -> float:
     for src in sorted(SRC_DIR.glob("*.cu")):
         LIBRARIES.get(src.stem)
     return LIBRARIES.build_seconds
+
+
+def wrappers() -> dict:
+    """Every kernel's wrapper by kernel name; each counts its launches in
+    ``.launches``."""
+    from . import fused_kid_step, fused_step, split_step
+    return {"fused_step": fused_step.fused_step,
+            "fused_rates": split_step.fused_rates,
+            "fused_post": split_step.fused_post,
+            "fused_kid_step": fused_kid_step.fused_kid_step}
+
+
+def reset_launch_counts():
+    """Set every kernel's launch count to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count by kernel name."""
+    return {k: fn.launches for k, fn in wrappers().items()}

@@ -2,7 +2,8 @@
 
 The port's own copy of the formulas and budgets of the reference's
 validation scripts (``validate_cases.py::score_against_oracle`` and
-``integrated_scores``, ``validate_2d.py::_closure``, the pass rule of
+``integrated_scores``, the pass rule and the f32 ensemble spread of
+``validate_cases_f32.py``, ``validate_2d.py::_closure``, the pass rule of
 ``validate_2d_f32.py``), which import JAX.  The anchors are the
 ``validation_finals/*.npz`` files those scripts wrote: final fields,
 ``ppt_rain`` (the domain series) and ``tmean_<field>`` time means.
@@ -16,13 +17,22 @@ import numpy as np
 TARGET_FIELDS = ("theta", "qv", "qc", "qr", "nr", "qi", "ni", "qs", "qg")
 WATER_FIELDS = ("qv", "qc", "qr", "qi", "qs", "qg")
 
+# float64 targets of the reference's case validation (validate_cases.py
+# :50-60): the target fields and the cumulative rain, and nc/nwfa/nifa,
+# each relative to the anchor's own scale
+RTOL = 1e-4
+RTOL_AEROSOL_EXTRAS = 1e-3
+
 # float32 budgets of the reference's validation (validate_cases_f32.py
-# :78-92): cumulative precip, final water paths, time-mean profiles
+# :78-92): cumulative precip, final water paths, time-mean profiles, with
+# the per-case budgets of deep1's final paths and aerosol1d's time means
 F32_BUDGET = 2.5e-2
 PPT_BUDGET = {"aerosol1d": 5e-2}
 PPT_BUDGET_DEFAULT = 2e-2
 PATH_BUDGET = 2.5e-2
+PATH_BUDGET_CASE = {"deep1": 1e-1}
 TMEAN_BUDGET = 4e-2
+TMEAN_BUDGET_CASE = {"aerosol1d": 1e-1}
 # water-budget closure: the scheme's documented non-conservation
 # (presence floors, the qv floor, the sedimentation gate; validate_2d.py:65)
 CONS_TOL = 1e-2
@@ -123,3 +133,35 @@ def score_2d_f32(name, rho0, dz, fields0, final_fields, ppt, tmean,
         and entry["tmean_prof_worst_rel"] <= TMEAN_BUDGET
         and abs(entry["closure"]) <= CONS_TOL)
     return entry
+
+
+def score_1d_f32(name, rho0, dz, final_fields, ppt_rain, tmean, anchor):
+    """A float32 1-D run against its float64 anchor, with the fixed-budget
+    pass rule of the reference's f32 case validation: cumulative precip,
+    final water paths and time-mean profiles, with the case's own budgets
+    where it has them.  The final-field maxima are reported, not gated.
+
+    ``ppt_rain``: the (n_steps,) surface rain series of the column;
+    ``tmean``: field -> time-mean profile."""
+    entry = score_against_oracle(final_fields, ppt_rain, anchor, F32_BUDGET,
+                                 F32_BUDGET)
+    entry.update(integrated_scores(final_fields, anchor, rho0, dz, tmean))
+    path = PATH_BUDGET_CASE.get(name, PATH_BUDGET)
+    entry["pass"] = bool(
+        entry["cum_ppt_rain_rel"] <= PPT_BUDGET.get(name, PPT_BUDGET_DEFAULT)
+        and entry["final_wvp_rel"] <= path
+        and entry["final_lwp_rel"] <= path
+        and entry["final_iwp_rel"] <= path
+        and entry["tmean_prof_worst_rel"]
+        <= TMEAN_BUDGET_CASE.get(name, TMEAN_BUDGET))
+    return entry
+
+
+def ensemble_spread(final_a, final_b):
+    """The chaos yardstick of the reference's f32 validation
+    (validate_cases_f32.py:130-150): the worst over the target fields of
+    max|a - b| / max|a| between a run and the same run from a
+    1e-7-perturbed qv."""
+    return max(float(np.abs(_f64(final_a[f]) - _f64(final_b[f])).max()
+                     / (np.abs(_f64(final_a[f])).max() + 1e-30))
+               for f in TARGET_FIELDS)

@@ -191,3 +191,49 @@ def test_fused_driver_switch_ignored_for_2d(name, monkeypatch):
     for k in PPT:
         assert torch.equal(getattr(got_out, k), getattr(want_out, k)), k
     assert torch.equal(got_out.profiles["qr"], want_out.profiles["qr"])
+
+
+@pytest.mark.parametrize("name", ["cumulus2d", "orographic2d"])
+def test_tiled_circulation_repeats_the_case(name):
+    """A 2-D case widened by whole circulation cells (``cell_nx``) repeats
+    the case's flow in every cell, and its columns follow the case's to
+    the assert_equiv model; widened without cells, the circulation
+    stretches and its x-CFL number passes 1."""
+    case = tcases.CASES[name]
+    tiled = dataclasses.replace(case, nx=4 * case.nx, cell_nx=case.nx)
+    grid = case.grid()
+    for pat in ("rhow_pattern", "rhou_pattern"):
+        one = getattr(case, pat)(grid)
+        many = getattr(tiled, pat)(grid)
+        scale = np.abs(one).max()
+        for k in range(4):
+            np.testing.assert_allclose(
+                many[k * case.nx:k * case.nx + one.shape[0]], one, rtol=0,
+                atol=1e-12 * scale, err_msg=pat)
+
+    def cfl(c):
+        u = c.rhou_pattern(grid) / grid.rho0[None, :] + c.u0
+        return float(np.abs(u).max()) * c.dt / c.dx
+
+    assert cfl(tiled) == pytest.approx(cfl(case), rel=1e-9)
+    assert cfl(case) < 0.5 < 1.0 < cfl(dataclasses.replace(case, nx=8192))
+    with pytest.raises(ValueError, match="whole cells"):
+        dataclasses.replace(case, nx=100, cell_nx=case.nx).rhou_pattern(grid)
+    n = 6
+    st1, out1 = simulate(initial_state(case, torch.float64, "cpu"),
+                         _tables(case), case, n, device="cpu")
+    st4, out4 = simulate(initial_state(tiled, torch.float64, "cpu"),
+                         _tables(case), tiled, n, device="cpu")
+    for k in range(4):
+        cols = slice(k * case.nx, (k + 1) * case.nx)
+        assert_equiv({f: getattr(st4, f)[cols].numpy()
+                      for f in KidState._fields},
+                     {f: getattr(st1, f).numpy() for f in KidState._fields})
+        np.testing.assert_allclose(out4.ppt_rain[:, cols].numpy(),
+                                   out1.ppt_rain.numpy(), rtol=1e-8,
+                                   atol=1e-20)
+
+
+def _tables(case):
+    return tables_from_numpy(j_get_tables(iiwarm=case.micro.iiwarm),
+                             torch.float64, "cpu")
