@@ -32,11 +32,12 @@ on failure:
      profiles on and off, on phase 2's seeded batch; its digests print
      apart from phase 2's;
   3. the main path: mixed1 widened to 8192 columns x 120 levels in
-     float32 through ``run_case`` (150 spin-up steps) and ``simulate``
-     (50 steps into the updraft pulse, timed as 5 windows of 10 steps:
-     median and best), with a profile of 5 more steps, the kernel's launch
-     count, outputs checked finite and non-negative, and the kernel timed
-     against its plain version on the main path's own inputs;
+     float32 through ``simulate``, which captures its step as a CUDA
+     graph in the 150 spin-up steps and replays it in 50 steps into the
+     updraft pulse, timed as 5 windows of 10 steps (median and best), with
+     a profile of 5 more steps, the kernel's launch count, outputs checked
+     finite and non-negative, and the kernel timed against its plain
+     version on the main path's own inputs;
   3b. the aerosol main path: aerosol1d widened the same way, through
      ``fused_rates`` -> lookups -> ``fused_post`` (each launched once per
      step), with the same checks, profile and timings, and the share of
@@ -49,7 +50,8 @@ on failure:
   4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
      256 columns and orographic2d at its own 64 x 60, from a seeded state
      at step 150, 20 steps through the kernel path and through the plain
-     path, in float64, and orographic2d once more with
+     path (the eager loop: a captured graph would replay the kernels), in
+     float64, and orographic2d once more with
      KID_TPU_TORCH_FUSED_DRIVER=1, which a 2-D case ignores (the same
      launches, bit-identical output); mixed1 and warm1_recon through the
      fused driver the same way, and the fused driver against the default
@@ -75,15 +77,31 @@ on failure:
      scored as the reference's ``cumulus2d_sharded`` row;
   6b. the flagship, cumulus2d at 131072 x 60 (2048 copies of its
      64-column circulation) in float32: 150 spin-up steps, 20 steps timed
-     and profiled, ``simulate``'s set-up, ``fused_step`` on the path's
-     last input, then the same 20 steps on 2 ranks from the spun-up
-     state, the same bits; ms/step, column-steps/s, the exchange's share
-     of a rank's step and peak device memory;
+     and profiled, ``simulate``'s set-up per call (a 0-step call, and the
+     flow built as each call built it before it was kept), ``fused_step``
+     on the path's last input, then the same 20 steps on 2 ranks (the
+     eager loop) from the spun-up state, the same bits; ms/step,
+     column-steps/s, the exchange's share of a rank's step and peak device
+     memory;
   7. the five 1-D cases at full length in float32 through
      ``validation.cases``, against the oracle's float64 finals in
      ``validation_finals/`` with the reference's fixed budgets, the
      perturbed (chaos) member for mixed1, deep1 and aerosol1d;
-  8. one run of ``python -m kid_tpu_torch.bench``, its JSON line printed.
+  8. one run of ``python -m kid_tpu_torch.bench``, its JSON line printed;
+  9. the compiled loop against the eager one: mixed1, aerosol1d and the
+     fused driver at (8192, 120), 20 steps from a seeded state at step
+     150, cumulus2d and orographic2d at (64, 60) for 900 steps, and the
+     flagship, 20 steps from a seeded state, each through ``simulate``
+     with ``graphs=False`` and then graphed (the default), in float32:
+     the same bits in the final state and every stream and the same
+     launches; wall and device ms/step, busy share, kernels per step, the
+     capture's ms and peak device memory of both.
+
+Phases 3-3c, 4 (its kernel path), 5, 6b, 7 and 8 and phase 6a's single
+process run ``simulate``'s default: a CUDA graph of the step, captured
+once per case, shape, dtype, tables and streams and replayed once a
+step.  The plain runs of phase 4 and the ranks of phase 6 run the eager
+loop.
 
 Phases 2, 2b, 2c and 2d print a SHA-256 digest (first 16 hex digits) of
 each kernel's outputs on each batch, and a combined digest per kernel
@@ -94,9 +112,11 @@ digests.  The new phases print their seconds.
 Every kernel's launch count is set to 0 just before each main path is
 driven and read just after (the ranks of phase 6 count their own); the
 kernels line adds each kernel's launches on every other path
-(``launches_by_path``).  The line before the last two is the card's
-name and power limit, then one JSON line describing every kernel, then
-``{"ok": true, "device": ...}``.
+(``launches_by_path``).  A replay of a captured step adds the launches
+its capture recorded; the capture itself, and the warm-up step run before
+it on a copy of the state, add none.  The line before the last two is
+the card's name and power limit, then one JSON line describing every
+kernel, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -141,6 +161,16 @@ N_WINDOW_2D = 90
 # phase 6: ranks on the one card; the flagship (bench_scaling_r05.py:38)
 N_RANKS = 2
 FLAGSHIP_NX, FLAGSHIP_SPIN, FLAGSHIP_STEPS = 131072, 150, 20
+# phase 9: cell -> (steps, from step (0: the initial sounding; else a
+# seeded state), streams of the timed runs (True: all), streams of one
+# more pair of runs or None); the 1-D cells at MAIN_NX columns, the
+# flagship at FLAGSHIP_NX
+GRAPH_CELLS = {
+    "mixed1": (20, 150, (), True), "aerosol1d": (20, 150, (), True),
+    "fused driver": (20, 150, (), True), "cumulus2d": (900, 0, True, None),
+    "orographic2d": (900, 0, True, None),
+    "flagship": (20, 150, (), ("qc", "qr", "prr_wau", "dqr_mphys"))}
+N_PROFILED = 5         # steps under the profiler
 # phase 7: the cases that also run the perturbed (chaos) member, those
 # of the reference's chaos envelope (VALIDATION_r05.json)
 CHAOS_CASES = ("mixed1", "deep1", "aerosol1d")
@@ -335,8 +365,10 @@ def phase_kid_step_vs_plain(dev, digests):
             case = dataclasses.replace(base, nx=BATCH_NCOL, nz=nz)
             st, m, tv, (w, p, e, r, dz) = kid_step_inputs(case, dtype, dev)
             noise = 1e-9 if dtype == torch.float64 else 1e-3
+            # the kernel reads m from the card, in the state's dtype
+            m_dev = torch.tensor(m, dtype=dtype, device=dev)
             for want_rates in (True, False):
-                args = (st, w, m, tv, p, e, r, dz, case.micro, case.dt,
+                args = (st, w, m_dev, tv, p, e, r, dz, case.micro, case.dt,
                         want_rates)
                 got = fused_kid_step(*args)
                 ref = fused_kid_step_ref(*args)
@@ -528,32 +560,54 @@ def recording(packers):
     return last, restore
 
 
+def first_graphed_call(simulate, dev, st0, tables, case):
+    """The first step of ``case`` from ``st0`` in a call of its own, which
+    warms up and captures the step before it replays it: (host ms of the
+    call, the state after it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = simulate(st0, tables, case, 1, device=dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, st
+
+
+def kept_inputs(last: dict) -> dict:
+    """Copies of the packers' last outputs.  In a graphed run those are the
+    captured graph's own buffers, which each replay fills with its step's
+    input: copied just after a run, they are its last step's inputs."""
+    return {k: tuple(t.clone() for t in v) if isinstance(v, tuple)
+            else v.clone() for k, v in last.items()}
+
+
 def run_main_path(dev, card, case, path_kernels, packers):
     """Spin-up, then 50 timed steps of ``case`` at full width in float32
     with every launch count set to 0 just before and read just after;
     checks the outputs and that each kernel of ``path_kernels`` launched
     once per step (and no other kernel launched).  ``packers`` are
-    (module, function name) of the kernels' input packers: the last input
-    of each is kept.  Returns (launch counts, last inputs by packer, median
-    ms/step)."""
-    from kid_tpu_torch.driver.loop import run_case, simulate
+    (module, function name) of the kernels' input packers: the last timed
+    step's input of each is kept.  The spin-up captures the step; the
+    timed windows replay it.  Returns (launch counts, last inputs by
+    packer, median ms/step)."""
+    from kid_tpu_torch.driver.loop import initial_state, simulate
     from kid_tpu_torch.micro.solver import device_tables
     from kid_tpu_torch.tables.cache import get_tables
 
     dtype = torch.float32
     n_spin, n_timed, n_window = N_SPIN, N_TIMED, N_WINDOW
-    t0 = time.perf_counter()
-    st, _ = run_case(case, dtype, n_steps=n_spin, device=dev)
-    torch.cuda.synchronize()
-    print(f"main path {case.name} spin-up: {n_spin} steps in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype, dev)
-
     last, restore = recording(packers)
     window_ms, ppts = [], []
-    final = st
-    reset_counts()
     try:
+        first_ms, final = first_graphed_call(simulate, dev, initial_state(
+            case, dtype, dev), tables, case)
+        t0 = time.perf_counter()
+        final, _ = simulate(final, tables, case, n_spin - 1, istep0=1,
+                            device=dev)
+        torch.cuda.synchronize()
+        print(f"main path {case.name} spin-up: the first call (warm-up, "
+              f"capture and 1 step) {first_ms:.1f} ms, then {n_spin - 1} "
+              f"steps in {time.perf_counter() - t0:.1f} s", flush=True)
+        reset_counts()
         for w in range(n_timed // n_window):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -564,8 +618,9 @@ def run_main_path(dev, card, case, path_kernels, packers):
             torch.cuda.synchronize()
             window_ms.append(e0.elapsed_time(e1) / n_window)
             ppts.append(out)
-    finally:
         counts = read_counts()
+        inputs = kept_inputs(last)
+    finally:
         restore()
     step_ms = float(np.median(window_ms))
     for k, n in counts.items():
@@ -594,7 +649,7 @@ def run_main_path(dev, card, case, path_kernels, packers):
           f"{rain:.3e} [{card}]", flush=True)
     profile_steps(dev, card, final, tables, case, n_spin + n_timed, step_ms,
                   path_kernels)
-    return counts, last, step_ms
+    return counts, inputs, step_ms
 
 
 def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
@@ -692,7 +747,8 @@ def phase_fused_driver_main_path(dev, card, default_ms, res):
     # the last timed step's
     x, prof = last["pack_kid_inputs"]
     cfg, dt_f = case.micro, case.dt
-    m = case.time_modulation(N_SPIN + N_TIMED - 1, x.dtype)
+    m = torch.tensor(case.time_modulation(N_SPIN + N_TIMED - 1, x.dtype),
+                     dtype=x.dtype, device=x.device)
     ncol, nz = x.shape[1:]
     st_in = KidState(*x[:12])
     tv = dict(zip(S.tv_keys(cfg), x[12:]))
@@ -807,38 +863,68 @@ def guard_shares(card, *plain):
           flush=True)
 
 
-def profile_steps(dev, card, st, tables, case, istep0, step_ms,
-                  path_kernels, n=5):
-    """Where a main-path step's device time goes: ``torch.profiler`` over
-    ``n`` steps, self device time by kernel, the number of kernels a step
-    launches, the device's busy share of the unprofiled step time and
-    each hand-written kernel's share of the device time."""
+def device_profile(run, n) -> tuple:
+    """``torch.profiler`` over ``run()``, ``n`` steps: (rows, wall), rows
+    (kernel name, self device ms per step, launches per step) of every
+    device kernel it records, wall the host-clock ms per step of the same
+    window, so that device time over it is the busy share of one window
+    (the profiler's own host work is in it, so the share is a lower
+    bound)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from kid_tpu_torch.driver.loop import simulate
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        simulate(st, tables, case, n, istep0=istep0, device=dev)
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    return [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0], wall
+
+
+def check_profiled_launches(label, rows, path_kernels):
+    """Each kernel of ``path_kernels`` ran once a profiled step, as the
+    profiler saw it on the card (a graph's replays included)."""
+    for name in path_kernels:
+        per_step = sum(r[2] for r in rows if f"{name}_kernel" in r[0])
+        if per_step != 1.0:
+            raise AssertionError(f"{label}: the profiler recorded "
+                                 f"{per_step} {name} launches a step, "
+                                 f"expected 1")
+
+
+def profile_steps(dev, card, st, tables, case, istep0, step_ms,
+                  path_kernels, n=5, names=()):
+    """Where a main-path step's device time goes: ``torch.profiler`` over
+    ``n`` steps, self device time by kernel, the number of kernels a step
+    launches, the device's busy share of the profiled window and each
+    hand-written kernel's share of the device time; fails unless each
+    kernel of ``path_kernels`` ran once a step.  ``names`` are the streams
+    of the timed run, so that the profile replays its captured step
+    (other streams would capture one inside the profile)."""
+    from kid_tpu_torch.driver.loop import simulate
+    rows, wall = device_profile(
+        lambda: simulate(st, tables, case, n, names, istep0=istep0,
+                         device=dev), n)
     total = sum(r[1] for r in rows)
     if total == 0.0:
         print("profile: the profiler recorded no device time (not "
               "measured)", flush=True)
         return
+    check_profiled_launches(f"profile of {case.name}", rows, path_kernels)
     n_kernels = sum(r[2] for r in rows)
     shares = []
     for name in path_kernels:
         t = sum(r[1] for r in rows if f"{name}_kernel" in r[0])
         shares.append(f"{name} {t:.3f} ms/step ({t / total:.3f} of device "
-                      f"time)")
+                      f"time, once a step)")
     print(f"profile of {n} {case.name} steps: device time {total:.3f} "
           f"ms/step in {n_kernels:.0f} kernels/step, busy share "
-          f"{total / step_ms:.3f} of the unprofiled {step_ms:.3f} ms/step; "
-          f"{'; '.join(shares)} [{card}]", flush=True)
+          f"{total / wall:.3f} of the profiled window's {wall:.3f} ms/step "
+          f"(unprofiled {step_ms:.3f} ms/step); {'; '.join(shares)} "
+          f"[{card}]", flush=True)
     for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:8.4f} ms/step {cnt:6.1f}x  {key[:90]}", flush=True)
 
@@ -897,11 +983,11 @@ def phase_end_to_end(dev):
             if n1[k] - n0[k] != 20:
                 raise AssertionError(f"kernel path did not launch {k}")
         kept = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
-        for mod, k, ref in swaps:            # the plain path, on the card
-            setattr(mod, k, ref)
+        for mod, k, ref in swaps:            # the plain path, on the card,
+            setattr(mod, k, ref)             # through the eager loop
         try:
             p_st, p_out = simulate(st0, tables, case, 20, istep0=150,
-                                   device=dev)
+                                   device=dev, graphs=False)
         finally:
             for mod, k, fn in kept:
                 setattr(mod, k, fn)
@@ -957,8 +1043,9 @@ def phase_fused_driver_end_to_end(dev):
                                torch.float64, dev)
         st0 = seeded_state(case, dev)
 
-        def run():
-            return simulate(st0, tables, case, 20, istep0=150, device=dev)
+        def run(graphs=True):
+            return simulate(st0, tables, case, 20, istep0=150, device=dev,
+                            graphs=graphs)
 
         d_st, d_out = run()                  # the default kernel path
         kernel = FK.fused_kid_step
@@ -968,7 +1055,7 @@ def phase_fused_driver_end_to_end(dev):
             k_st, k_out = run()
             n1 = read_counts()
             FK.fused_kid_step = FK.fused_kid_step_ref  # the plain path
-            p_st, p_out = run()
+            p_st, p_out = run(graphs=False)
         finally:
             FK.fused_kid_step = kernel
             del os.environ[FUSED_DRIVER_ENV]
@@ -1059,6 +1146,7 @@ def phase_2d(dev, card):
                 outs.append(out)
                 if w == 0:          # profiled below, inside the flow's rise
                     st_first = st
+            inputs = kept_inputs(last)
         finally:
             restore()
         for f in names:
@@ -1079,7 +1167,7 @@ def phase_2d(dev, card):
               f"{' '.join(f'{m:.3f}' for m in window_ms)} ms/step [{card}]",
               flush=True)
         profile_steps(dev, card, st_first, tables, case, N_WINDOW_2D,
-                      step_ms, ("fused_step",))
+                      step_ms, ("fused_step",), names=names)
 
         # scores against the float64 driver's full-size finals
         grid = case.grid()
@@ -1110,7 +1198,7 @@ def phase_2d(dev, card):
             raise AssertionError(f"{case.name}: over a budget {entry}")
 
         # the kernel and its plain version on the path's last input
-        x = last["pack_inputs"]
+        x = inputs["pack_inputs"]
         st_in = ColumnState(*x[:12])
         tv = dict(zip(tv_keys(cfg), x[14:]))
         ncol, nz = x.shape[1:]
@@ -1335,7 +1423,8 @@ def phase_flagship(dev, card):
     import kid_tpu_torch.micro.fused_step as F
     from kid_tpu_torch.dist import launch
     from kid_tpu_torch.driver.cases import CUMULUS2D
-    from kid_tpu_torch.driver.loop import initial_state, simulate
+    from kid_tpu_torch.driver.loop import (build_flow, initial_state,
+                                           simulate)
     from kid_tpu_torch.micro import cuda_build
     from kid_tpu_torch.micro.solver import device_tables, tv_keys
     from kid_tpu_torch.micro.state import ColumnState
@@ -1345,15 +1434,16 @@ def phase_flagship(dev, card):
     dtype, n, i0 = torch.float32, FLAGSHIP_STEPS, FLAGSHIP_SPIN
     torch.cuda.reset_peak_memory_stats(dev)
     tables = device_tables(get_tables(iiwarm=True), dtype, dev)
-    t0 = time.perf_counter()
-    st, _ = simulate(initial_state(case, dtype, dev), tables, case, i0,
-                     device=dev)
-    simulate(st, tables, case, n, istep0=i0, device=dev)
-    torch.cuda.synchronize()
-    spin_s = time.perf_counter() - t0
     last, restore = recording([(F, "pack_inputs")])
-    reset_counts()
     try:
+        first_ms, st = first_graphed_call(simulate, dev, initial_state(
+            case, dtype, dev), tables, case)
+        t0 = time.perf_counter()
+        st, _ = simulate(st, tables, case, i0 - 1, istep0=1, device=dev)
+        simulate(st, tables, case, n, istep0=i0, device=dev)
+        torch.cuda.synchronize()
+        spin_s = time.perf_counter() - t0
+        reset_counts()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -1362,13 +1452,20 @@ def phase_flagship(dev, card):
         e1.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    finally:
         counts = read_counts()
+        inputs = kept_inputs(last)
+    finally:
         restore()
     step_ms = e0.elapsed_time(e1) / n
     peak = torch.cuda.max_memory_allocated(dev)
     # what a call of simulate costs before its first step: the flow
-    # patterns built on the host and copied to the card
+    # patterns built on the host and copied, as every call built them
+    # before they were kept (``build_flow``), and a 0-step call now (the
+    # flow and the captured step kept in ``BLOCKS``)
+    t0 = time.perf_counter()
+    build_flow(case, dtype, st.qv.device)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     simulate(st, tables, case, 0, istep0=i0, device=dev)
     torch.cuda.synchronize()
@@ -1377,12 +1474,16 @@ def phase_flagship(dev, card):
         raise AssertionError(f"flagship: launches {counts} in {n} steps")
     check_finite_nonnegative("flagship", {
         **final._asdict(), **{k: getattr(out, k) for k in PPT}})
-    print(f"flagship cumulus2d ({case.nx}, {case.nz}) f32: spin-up {i0} "
-          f"steps and the window once untimed in {spin_s:.1f} s; {n} steps "
+    print(f"flagship cumulus2d ({case.nx}, {case.nz}) f32: spin-up of "
+          f"{i0} steps after the first, and the window once untimed, in "
+          f"{spin_s:.1f} s; {n} steps "
           f"from step {i0}: {step_ms:.3f} ms/step (events; host clock "
           f"{wall_ms:.3f}), {case.nx * 1e3 / step_ms:.0f} column-steps/s, "
           f"of which simulate's set-up (a 0-step call) {setup_ms:.1f} ms, "
-          f"{setup_ms / n:.3f} ms/step; "
+          f"{setup_ms / n:.3f} ms/step (the flow built for each call, as "
+          f"before it was kept: {build_ms:.1f} ms, {build_ms / n:.3f} "
+          f"ms/step); the spin-up's first call (warm-up, capture and 1 "
+          f"step) {first_ms:.1f} ms; "
           f"{counts['fused_step']} fused_step launches and no other kernel; "
           f"peak device memory {peak / 2**30:.2f} GiB; qc max "
           f"{float(final.qc.max()):.3e}, rain in the window "
@@ -1391,7 +1492,7 @@ def phase_flagship(dev, card):
                   ("fused_step",))
 
     # fused_step and its plain version on the path's last input
-    x = last["pack_inputs"]
+    x = inputs["pack_inputs"]
     cfg = case.micro
     st_in = ColumnState(*x[:12])
     tv = dict(zip(tv_keys(cfg), x[14:]))
@@ -1413,7 +1514,7 @@ def phase_flagship(dev, card):
                   got_want, res, f"the flagship's last input (warm, "
                   f"{res['regs']} regs, {res['blocks_per_sm']} blocks of "
                   f"{(nz + 31) // 32 * 32} threads/SM)")
-    del last, x, st_in, tv
+    del inputs, x, st_in, tv
 
     # the same window on the ranks, from the spun-up state
     t0 = time.perf_counter()
@@ -1474,6 +1575,139 @@ def phase_validation(dev, card):
     return launches
 
 
+def to_host(result):
+    """A (KidState, StepOutputs) with every tensor on the host."""
+    st, out = result
+    return (type(st)(*[t.cpu() for t in st]), out._replace(
+        **{k: getattr(out, k).cpu() for k in PPT},
+        profiles={k: v.cpu() for k, v in out.profiles.items()}))
+
+
+def same_bits(label, got, want):
+    """Raise unless two (KidState, StepOutputs) hold the same bits."""
+    (g_st, g_out), (w_st, w_out) = got, want
+    pairs = [(f, getattr(g_st, f), getattr(w_st, f)) for f in g_st._fields]
+    pairs += [(k, getattr(g_out, k), getattr(w_out, k)) for k in PPT]
+    if set(g_out.profiles) != set(w_out.profiles):
+        raise AssertionError(f"{label}: streams differ")
+    pairs += [(k, v, w_out.profiles[k]) for k, v in g_out.profiles.items()]
+    for k, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: graphed and eager differ in {k}")
+    return len(pairs) - len(g_st._fields)
+
+
+def phase_graphs_vs_eager(dev, card):
+    """Each cell of GRAPH_CELLS through the graphed loop (the default) and
+    the eager loop in this call, the eager first: the same bits in the
+    final state and every stream, the same launches; wall ms/step (host
+    clock, and events), device ms/step and kernels per step (profiler,
+    ``N_PROFILED`` steps, each path kernel once a step), busy share (of
+    the profiled window), peak device memory, and the first graphed
+    call (warm-up, capture and one step).  The 1-D cells and the flagship
+    are timed without profile streams, as their main paths run, and
+    checked once more with streams; the 2-D cells run all streams."""
+    from kid_tpu_torch.driver.cases import (AEROSOL1D, CUMULUS2D, MIXED1,
+                                            OROGRAPHIC2D)
+    from kid_tpu_torch.driver.loop import (BLOCKS, FUSED_DRIVER_ENV,
+                                           KidState, initial_state,
+                                           simulate)
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    wide = {"mixed1": dataclasses.replace(MIXED1, nx=MAIN_NX),
+            "aerosol1d": dataclasses.replace(AEROSOL1D, nx=MAIN_NX),
+            "fused driver": dataclasses.replace(MIXED1, nx=MAIN_NX),
+            "cumulus2d": CUMULUS2D, "orographic2d": OROGRAPHIC2D,
+            "flagship": dataclasses.replace(CUMULUS2D, nx=FLAGSHIP_NX,
+                                            cell_nx=CUMULUS2D.nx)}
+    row_kernels = {label: ("fused_step",) for label in wide}
+    row_kernels["aerosol1d"] = ("fused_rates", "fused_post")
+    row_kernels["fused driver"] = ("fused_kid_step",)
+    dtype = torch.float32
+    rows = {}
+    for label, (n, i0, timed_names, check_names) in GRAPH_CELLS.items():
+        case = wide[label]
+        BLOCKS.clear()
+        torch.cuda.empty_cache()
+        if label == "fused driver":
+            os.environ[FUSED_DRIVER_ENV] = "1"
+        try:
+            tables = device_tables(get_tables(iiwarm=case.micro.iiwarm),
+                                   dtype, dev)
+            st0 = (KidState(*[t.to(dtype) for t in seeded_state(case, dev)])
+                   if i0 else initial_state(case, dtype, dev))
+
+            def run(graphs, names=timed_names, steps=n):
+                return simulate(st0, tables, case, steps, names, istep0=i0,
+                                device=dev, graphs=graphs)
+
+            got, row = {}, {}
+            # each mode's result goes to the host, so that the other's
+            # peak device memory does not hold it
+            for mode, graphs in (("eager", False), ("graphed", True)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                if graphs:              # the capture, in a 1-step call
+                    t0 = time.perf_counter()
+                    run(True, steps=1)
+                    torch.cuda.synchronize()
+                    row["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+                reset_counts()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                result = run(graphs)
+                e1.record()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / n
+                peak = torch.cuda.max_memory_allocated(dev)
+                got[mode] = to_host(result)
+                del result
+                counts = read_counts()
+                prof, prof_wall = device_profile(
+                    lambda: run(graphs, steps=N_PROFILED), N_PROFILED)
+                check_profiled_launches(f"{label} {mode}", prof,
+                                        row_kernels[label])
+                device_ms = sum(r[1] for r in prof)
+                row[mode] = dict(
+                    wall_ms=wall, event_ms=e0.elapsed_time(e1) / n,
+                    device_ms=device_ms,
+                    kernels=sum(r[2] for r in prof),
+                    busy=device_ms / prof_wall,
+                    peak_gib=peak / 2**30,
+                    launches={k: v for k, v in counts.items() if v})
+            if row["graphed"]["launches"] != row["eager"]["launches"]:
+                raise AssertionError(f"{label}: launches {row}")
+            n_streams = same_bits(label, got["graphed"], got["eager"])
+            final, out = got.pop("graphed")
+            check_finite_nonnegative(label, {
+                **final._asdict(), **{k: getattr(out, k) for k in PPT}})
+            del got, final, out
+            if check_names is not None:
+                n_streams = same_bits(label,
+                                      to_host(run(True, check_names)),
+                                      to_host(run(False, check_names)))
+        finally:
+            os.environ.pop(FUSED_DRIVER_ENV, None)
+        e, g = row["eager"], row["graphed"]
+        print(f"graphs vs eager {label} ({case.nx}, {case.nz}) f32, {n} "
+              f"steps from step {i0}: the same bits in the final state and "
+              f"{n_streams} streams, launches {g['launches']}; "
+              + "; ".join(
+                  f"{mode} wall {r['wall_ms']:.3f} ms/step (events "
+                  f"{r['event_ms']:.3f}), device {r['device_ms']:.3f} "
+                  f"ms/step in {r['kernels']:.0f} kernels/step, busy "
+                  f"{r['busy']:.3f}, peak {r['peak_gib']:.2f} GiB"
+                  for mode, r in (("eager", e), ("graphed", g)))
+              + f"; the first graphed call (warm-up, capture and 1 step) "
+              f"{row['first_call_ms']:.1f} ms; wall "
+              f"{e['wall_ms'] / g['wall_ms']:.2f}x [{card}]", flush=True)
+        rows[label] = row
+    BLOCKS.clear()
+    return rows
+
+
 def phase_bench(dev):
     """One run of ``python -m kid_tpu_torch.bench`` in this process; its
     JSON line is printed as it prints it."""
@@ -1520,6 +1754,7 @@ def main() -> int:
     by_path["flagship_window"] = timed("6b", phase_flagship, dev, card)
     validation = timed("7", phase_validation, dev, card)
     timed("8", phase_bench, dev)
+    timed("9", phase_graphs_vs_eager, dev, card)
     records[0]["launches_by_path"] = by_path
     for name, counts in validation.items():
         for r in records:

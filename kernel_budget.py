@@ -181,6 +181,16 @@ def _label(nz, dtype, warm, rates=None):
     return s if rates is None else f"{s} rates={int(rates)}"
 
 
+def kid_launch(x, prof, m: float, case, rates: bool):
+    """A launch of ``fused_kid_step`` on packed inputs ``x`` and ``prof``
+    at m(t) ``m``, which the kernel reads from the card: a one-element
+    tensor of the inputs' dtype (``m`` rounded to it) on their device."""
+    import kid_tpu_torch.micro.fused_kid_step as FK
+    mmod = torch.tensor(m, dtype=x.dtype, device=x.device)
+    return lambda: FK.launch_kid_packed(x, prof, mmod, case.micro, case.dt,
+                                        rates)
+
+
 def step_batches(dev, stems):
     """Seeded inputs of ``fused_step`` and ``fused_kid_step``: [(label,
     stem, launch)] where ``launch()`` runs the routed kernel and returns
@@ -216,9 +226,7 @@ def step_batches(dev, stems):
                                 F.launch_packed(x, cfg, 10.0, r)))
                     if "fused_kid_step" in stems:
                         out.append((label, "fused_kid_step",
-                                    lambda x=kx, p=prof, m=m, c=case,
-                                    r=rates: FK.launch_kid_packed(
-                                        x, p, m, c.micro, c.dt, r)))
+                                    kid_launch(kx, prof, m, case, rates)))
     return [o for o in out if o[1] in stems]
 
 
@@ -290,27 +298,26 @@ def timed_inputs(dev, stems):
                                      (FK, "pack_kid_inputs")])
         try:
             if "fused_step" in stems:
-                simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev)
+                simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev,
+                         graphs=False)
             if "fused_kid_step" in stems:
                 os.environ[FUSED_DRIVER_ENV] = "1"
                 try:
-                    simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev)
+                    simulate(st, tables, case, 1, istep0=C.N_SPIN,
+                             device=dev, graphs=False)
                 finally:
                     del os.environ[FUSED_DRIVER_ENV]
         finally:
             restore()
         label = "mixed1 (8192, 120) f32"
         if "fused_step" in stems:
-            x = last["pack_inputs"]
             out.append((label, "fused_step",
-                        lambda: F.launch_packed(x, case.micro, case.dt,
-                                                False)))
+                        lambda x=last["pack_inputs"], cfg=case.micro,
+                        dt=case.dt: F.launch_packed(x, cfg, dt, False)))
         if "fused_kid_step" in stems:
             kx, prof = last["pack_kid_inputs"]
-            m = case.time_modulation(C.N_SPIN, F32)
-            out.append((label, "fused_kid_step",
-                        lambda: FK.launch_kid_packed(kx, prof, m, case.micro,
-                                                     case.dt, False)))
+            out.append((label, "fused_kid_step", kid_launch(
+                kx, prof, case.time_modulation(C.N_SPIN, F32), case, False)))
     if {"fused_rates", "fused_post"} & stems:
         case = dataclasses.replace(AEROSOL1D, nx=C.MAIN_NX)
         st, _ = run_case(case, F32, n_steps=C.N_SPIN, device=dev)
@@ -318,7 +325,8 @@ def timed_inputs(dev, stems):
         last, restore = C.recording([(A, "pack_rates_inputs"),
                                      (A, "pack_post_inputs")])
         try:
-            simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev)
+            simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev,
+                     graphs=False)
         finally:
             restore()
         out += split_launches("aerosol1d (8192, 120) f32",

@@ -26,7 +26,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..driver.advection import advective_tendency_x_padded
-from ..driver.loop import KidState, run_steps
+from ..driver.loop import BLOCKS, KidState, run_steps
 
 HALO = 2                 # ghost columns per side of the MUSCL x stencil
 # a rank that waits this long for the others gives up (a peer has died)
@@ -158,18 +158,19 @@ def simulate_sharded(state_local: KidState, tables, case, n_steps: int,
     if state_local.qv.shape[0] != hi - lo:
         raise ValueError(f"rank {rank} holds {state_local.qv.shape[0]} "
                          f"columns, its block is {hi - lo}")
-    grid = case.grid()
-    # this block's rows of the flow; the block's nloc+1 x-faces include
-    # the one it shares with its right neighbour
-    w_pat = case.rhow_pattern(grid)[lo:hi]
-    u_pat = None if case.is_1d else case.rhou_pattern(grid)[lo:hi + 1]
+    dev = resolve_device(device)
 
     def pad_x(q):        # (n_adv, nloc, nz): one exchange for all tracers
         left, right = halo_exchange_x(q, group, HALO, axis=1)
         return torch.cat([left, q, right], 1)
 
+    # this block's rows of the flow (built once per case and block); the
+    # exchange is a collective, staged through the host under gloo, which a
+    # CUDA graph cannot capture: the loop runs eagerly
+    block = BLOCKS.get(case, state_local.qv.dtype, state_local.qv.device, lo,
+                       hi)
     return run_steps(state_local, tables, case, n_steps, profile_diags,
-                     istep0, device, w_pat, u_pat, pad_x)
+                     istep0, dev, block, pad_x, graphs=False)
 
 
 def shard_state(state: KidState, rank: int, world_size: int) -> KidState:

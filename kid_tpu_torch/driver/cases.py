@@ -84,8 +84,9 @@ class Case:
         column the true case)."""
         return self.dx == 0.0
 
-    def rhow_pattern(self, grid: Grid) -> np.ndarray:
-        """F_z(x, z) = rho0*w at z-faces, (nx, nz+1)."""
+    def rhow_pattern(self, grid: Grid, psi=None) -> np.ndarray:
+        """F_z(x, z) = rho0*w at z-faces, (nx, nz+1).  2-D cases take
+        ``psi`` (``_psi(grid)``) when the caller has it."""
         zface = np.concatenate([[0.0], np.cumsum(grid.dz)])
         rho_face = np.concatenate([grid.rho0[:1],
                                    0.5 * (grid.rho0[1:] + grid.rho0[:-1]),
@@ -94,15 +95,16 @@ class Case:
             wz = self.w1 * np.sin(np.pi * zface / self.ztop)
             return np.broadcast_to((rho_face * wz)[None, :],
                                    (self.nx, self.nz + 1))
-        psi = self._psi(grid)
+        psi = self._psi(grid) if psi is None else psi
         return np.diff(psi, axis=0) / self.dx           # (nx, nz+1)
 
-    def rhou_pattern(self, grid: Grid) -> Optional[np.ndarray]:
+    def rhou_pattern(self, grid: Grid, psi=None) -> Optional[np.ndarray]:
         """F_x(x, z) = rho0*u at x-faces, (nx+1, nz); circulation part only
-        (the u0 background is added in the loop as rho0*u0)."""
+        (the u0 background is added in the loop as rho0*u0).  Takes
+        ``psi`` as ``rhow_pattern`` does."""
         if self.is_1d:
             return None
-        psi = self._psi(grid)
+        psi = self._psi(grid) if psi is None else psi
         return -np.diff(psi, axis=1) / grid.dz[None, :]  # (nx+1, nz)
 
     def time_modulation(self, istep: int, dtype=torch.float64) -> float:
@@ -121,6 +123,14 @@ class Case:
                 return 0.0
             return float(rnd(math.sin(t * (rnd(math.pi) * inv_t1))))
         return float(min(t * inv_t1, rnd(1.0)))       # ramp to steady
+
+    def modulation_table(self, istep0: int, n: int,
+                         dtype=torch.float64) -> np.ndarray:
+        """m(t) at steps ``istep0 .. istep0 + n - 1``, each
+        ``time_modulation``'s value, as a numpy array of ``dtype``."""
+        rnd = np.float32 if dtype == torch.float32 else np.float64
+        return np.array([self.time_modulation(i, dtype)
+                         for i in range(istep0, istep0 + n)], dtype=rnd)
 
     @property
     def n_steps(self) -> int:

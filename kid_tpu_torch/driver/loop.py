@@ -9,22 +9,32 @@ The adapter contract of mphys_thompson09n.f90:28-310 is kept:
   * the microphysics output becomes the new state (the final update
     ``x + (adv + div + mphys)*dt`` telescopes, :198-245).
 
-The loop is a Python loop over steps.  The time modulation m(t) is computed
-on the host from the step index, in the state's dtype as the reference
-rounds it, and the per-step precip and profile streams are written into
-device tensors, so a step never waits for the device.
+The reference compiles its loop (``jax.jit`` over ``lax.scan``,
+kid_tpu/driver/loop.py:306-334).  Here the step is one function of static
+device buffers (``StepLoop.advance``) that reads no host value: m(t) comes
+from a device table at a device step counter, and the per-step precip and
+profile streams go into a chunk buffer at that counter.  The m table is
+computed on the host (``Case.modulation_table``, in the state's dtype as
+the reference rounds it) and uploaded once a chunk of ``CHUNK_STEPS``
+steps; the streams are copied out once a chunk.  On a CUDA device
+``simulate`` captures the step once as a CUDA graph and replays it, one
+replay a step; on the CPU, and on a card with ``graphs=False``, the same
+step runs eagerly.  ``BLOCKS`` keeps, for each case and column block,
+the flow patterns, built once, and the step last captured on them, keyed
+on what the reference's ``jit`` makes static.
 """
 from __future__ import annotations
 
+import collections
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import constants as c
 from ..device import check_on, resolve_device
-from ..micro import ColumnState, batched_microphysics
+from ..micro import ColumnState, batched_microphysics, cuda_build
 from ..micro import solver as S
 from ..micro.solver import device_tables
 from ..tables.cache import get_tables
@@ -35,6 +45,15 @@ from .cases import Case
 # The opt-in fused driver step (micro/fused_kid_step.py) for 1-D,
 # non-aerosol cases: set to "1" to turn it on.
 FUSED_DRIVER_ENV = "KID_TPU_TORCH_FUSED_DRIVER"
+# steps of a chunk: m(t) is uploaded, and the streams copied out, once a
+# chunk
+CHUNK_STEPS = 16
+# column blocks kept (``BLOCKS``), each with its flow and at most one
+# captured step, which holds its step's intermediates on the card
+BLOCK_CACHE_SIZE = 4
+# the device types on which ``simulate`` captures its step (the tests put a
+# stand-in capture on the CPU)
+GRAPH_DEVICE_TYPES = ("cuda",)
 
 
 class KidState(NamedTuple):
@@ -143,7 +162,9 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
       pad_x:       callable (n_adv, nx, nz) -> (n_adv, nx+4, nz) adding 2
                    ghost columns per side; unused for 1-D cases.
       profile_names: from ``resolve_profile_names``.
-    Returns ``step(state, istep) -> (new state, (4, nx) precip, profiles)``.
+    Returns ``step(state, m) -> (new state, (4, nx) precip, profiles)``,
+    with ``m`` the time modulation m(t) as a 0-d tensor of ``dtype`` on
+    ``device``: the step reads no host value.
     """
     dev = resolve_device(device)
     grid = case.grid()
@@ -176,8 +197,7 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
     adv_fields = advected_fields(cfg)
     adv_idx = tuple(KidState._fields.index(f) for f in adv_fields)
 
-    def step(st: KidState, istep: int):
-        m = case.time_modulation(istep, dtype)
+    def step(st: KidState, m):
         w_face = m * w_pat                       # rho0*w at z-faces
         q = torch.stack([st[i] for i in adv_idx])
         # 1-D: flux form plus the divergence closure; 2-D: the
@@ -234,58 +254,245 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
     return step
 
 
+class Flow(NamedTuple):
+    """A block of a case's columns on the device: its rows of the flow
+    patterns and its pressure."""
+
+    w_pat: torch.Tensor            # (ncol, nz+1) rho0*w at z-faces
+    u_pat: Optional[torch.Tensor]  # (ncol+1, nz) rho0*u' at x-faces; 1-D None
+    pres2: torch.Tensor            # (ncol, nz)
+
+
+def build_flow(case: Case, dtype, device, lo: int = 0,
+               hi: Optional[int] = None) -> Flow:
+    """``Flow`` of columns ``lo:hi`` (default: all) of ``case`` on
+    ``device``, with the stream function computed once for both patterns.
+    The block's ``hi - lo + 1`` x-faces include the one it shares with its
+    right neighbour.  ``BLOCKS`` keeps what this builds."""
+    grid = case.grid()
+    hi = case.nx if hi is None else hi
+    psi = None if case.is_1d else case._psi(grid)
+
+    def put(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    u_pat = (None if case.is_1d
+             else put(case.rhou_pattern(grid, psi)[lo:hi + 1]))
+    return Flow(put(case.rhow_pattern(grid, psi)[lo:hi]), u_pat,
+                torch.broadcast_to(put(grid.pres), (hi - lo, case.nz)))
+
+
+def wrap_x(q):
+    """Periodic ghost columns of (n_adv, nx, nz): 2 from each end."""
+    return torch.cat([q[:, -2:], q, q[:, :2]], 1)
+
+
+class StepLoop:
+    """The time loop's device buffers and the step on them.
+
+    ``advance`` takes one step from ``state``: it reads m(t) from ``m_buf``
+    at the device ``counter``, writes the step's precip and profiles into
+    the chunk buffers ``ppt`` and ``profiles`` at the counter and adds one
+    to the counter; it reads no host value.  ``run`` takes steps eagerly,
+    each new state replacing ``state``; ``step_in_place`` copies the new
+    state into ``state`` instead, so that a CUDA graph can capture it and
+    its replays chain with no host work between them."""
+
+    def __init__(self, step, shape: tuple, dtype, device, names: tuple):
+        self.step = step
+        self.state = None
+        self.m_buf = torch.zeros(CHUNK_STEPS, dtype=dtype, device=device)
+        self.counter = torch.zeros(1, dtype=torch.long, device=device)
+        self.ppt = torch.empty((CHUNK_STEPS, 4, shape[0]), dtype=dtype,
+                               device=device)
+        self.profiles = {n: torch.empty((CHUNK_STEPS,) + shape, dtype=dtype,
+                                        device=device) for n in names}
+
+    def start_chunk(self, m_values: np.ndarray):
+        """m(t) of the chunk's steps (one host-to-device copy, from pinned
+        memory on a card) and the counter at 0."""
+        src = torch.from_numpy(m_values)
+        if self.m_buf.is_cuda:
+            src = src.pin_memory()
+        self.m_buf[:len(m_values)].copy_(src, non_blocking=True)
+        self.counter.zero_()
+
+    def advance(self) -> KidState:
+        """One step from ``state``; returns the new state."""
+        m = self.m_buf.index_select(0, self.counter).reshape(())
+        new, ppt, profs = self.step(self.state, m)
+        self.ppt.index_copy_(0, self.counter, ppt[None])
+        for name, v in profs.items():
+            self.profiles[name].index_copy_(0, self.counter, v[None])
+        self.counter.add_(1)
+        return new
+
+    def step_in_place(self):
+        for buf, t in zip(self.state, self.advance()):
+            buf.copy_(t)
+
+    def run(self, n: int):
+        """``n`` steps, eagerly."""
+        for _ in range(n):
+            self.state = self.advance()
+
+
+class CapturedStep:
+    """A ``StepLoop``'s ``step_in_place`` captured as a CUDA graph, on
+    state buffers of its own.
+
+    Before the capture, the kernel libraries are loaded and one warm-up
+    ``advance`` runs on a side stream; its results, and its launches, are
+    thrown away, and the state buffers stay as ``state0`` left them.
+    ``launches`` are the kernel launches of one replay, which ``run`` adds
+    to the wrappers' counts.  ``key`` is what the capture depends on
+    beyond its ``Block`` (see ``run_steps``); ``tables`` are kept so that
+    their identity in the key stays theirs."""
+
+    def __init__(self, loop: StepLoop, state0: KidState, key, tables):
+        dev = loop.m_buf.device
+        self.loop, self.key, self.tables = loop, key, tables
+        cuda_build.build()
+        loop.state = KidState(*[t.clone() for t in state0])
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            cuda_build.take_launches(loop.advance)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.launches = cuda_build.take_launches(loop.step_in_place)
+
+    def load(self, state0: KidState):
+        for buf, t in zip(self.loop.state, state0):
+            buf.copy_(t)
+
+    def run(self, n: int):
+        """``n`` steps: ``n`` replays on the current stream."""
+        for _ in range(n):
+            self.graph.replay()
+        cuda_build.add_launches(self.launches, n)
+
+
+class Block:
+    """A block of a case's columns on a device, as ``BLOCKS`` keeps it: its
+    ``Flow``, built once, as the reference's ``jit`` builds it once per
+    compile, and the step last captured on it (``captured``), if any."""
+
+    def __init__(self, flow: Flow):
+        self.flow = flow
+        self.captured: Optional[CapturedStep] = None
+
+    def capture(self, key, build) -> CapturedStep:
+        """The captured step for ``key``: the kept one if its key is
+        ``key``, else ``build()``, which replaces it (the old graph and its
+        memory go first)."""
+        if self.captured is None or self.captured.key != key:
+            self.captured = None
+            self.captured = build()
+        return self.captured
+
+
+class BlockCache:
+    """``Block``s by (case, dtype, device, lo, hi); beyond ``size`` the
+    least recently used is dropped, and with it its flow and its captured
+    step's graph and memory."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._entries = collections.OrderedDict()
+
+    def get(self, case: Case, dtype, device, lo: int = 0,
+            hi: Optional[int] = None) -> Block:
+        """The ``Block`` of columns ``lo:hi`` (default: all) of ``case`` on
+        ``device`` (a ``torch.device``), built on the first call."""
+        key = (case, dtype, device, lo, hi)
+        entry = self._entries.pop(key, None)
+        if entry is None:
+            entry = Block(build_flow(case, dtype, device, lo, hi))
+        self._entries[key] = entry
+        while len(self._entries) > self.size:
+            self._entries.popitem(last=False)
+        return entry
+
+    def clear(self):
+        self._entries.clear()
+
+    def __len__(self):
+        return len(self._entries)
+
+
+BLOCKS = BlockCache(BLOCK_CACHE_SIZE)
+
+
 def simulate(state0: KidState, tables, case: Case, n_steps: int,
-             profile_diags=False, istep0: int = 0, device="cuda"):
+             profile_diags=False, istep0: int = 0, device="cuda",
+             graphs: bool = True):
     """Run ``n_steps`` of a case from ``state0``; returns
     (final KidState, StepOutputs).  ``istep0`` is the number of steps
     already taken, so a run can be chunked over several calls.  Every
     tensor must lie on ``device``; raises without a GPU unless
-    ``device="cpu"``."""
-    grid = case.grid()
-    u_pat = None if case.is_1d else case.rhou_pattern(grid)
-
-    def pad_x(q):        # periodic: wrap 2 columns from each end
-        return torch.cat([q[:, -2:], q, q[:, :2]], 1)
-
+    ``device="cpu"``.  On a card the step is captured as a CUDA graph and
+    replayed (``graphs=False``: run eagerly); a failed capture or replay
+    raises.  The returned tensors are the caller's own."""
+    dev = resolve_device(device)
+    check_on(state0.qv, dev)
+    block = BLOCKS.get(case, state0.qv.dtype, state0.qv.device)
     return run_steps(state0, tables, case, n_steps, profile_diags, istep0,
-                     device, case.rhow_pattern(grid), u_pat, pad_x)
+                     dev, block, wrap_x, graphs)
 
 
 def run_steps(state0: KidState, tables, case: Case, n_steps: int,
-              profile_diags, istep0: int, device, w_pat, u_pat_faces,
-              pad_x):
+              profile_diags, istep0: int, device, block: Block, pad_x,
+              graphs: bool = True):
     """The time loop of ``simulate`` over the columns that ``state0``
-    holds, which may be a block of the case's columns: ``w_pat`` (ncol,
-    nz+1) and ``u_pat_faces`` (ncol+1, nz; None for 1-D cases) are those
-    columns' rows of the case's flow patterns, as numpy arrays, and
-    ``pad_x`` fills their ghost columns (see ``make_step``)."""
+    holds, which may be a block of the case's columns: ``block`` holds
+    those columns' flow (see ``BLOCKS``), and ``pad_x`` fills their ghost
+    columns (see ``make_step``).  With ``graphs`` on a CUDA device the
+    step is captured on ``block`` once per (profile names, fused-driver
+    switch, ``tables``, ``pad_x``) and replayed; ``pad_x`` must then need
+    no host work (the sharded path's exchange does: it passes
+    ``graphs=False``)."""
     dev = resolve_device(device)
     for t in state0:
         check_on(t, dev)
-    grid = case.grid()
     dtype = state0.qv.dtype
     shape = tuple(state0.qv.shape)
-
-    def pattern(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    pres2 = torch.broadcast_to(pattern(grid.pres), shape)
-    u_pat = None if u_pat_faces is None else pattern(u_pat_faces)
+    fl = block.flow
+    if fl.w_pat.shape != (shape[0], shape[1] + 1):
+        raise ValueError(f"flow rows {tuple(fl.w_pat.shape)} do not fit "
+                         f"the state's {shape}")
     names = resolve_profile_names(profile_diags)
-    step = make_step(case, tables, dtype, dev, pattern(w_pat), u_pat, pres2,
-                     pad_x, names)
+
+    def new_loop():
+        step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
+                         fl.pres2, pad_x, names)
+        return StepLoop(step, shape, dtype, dev, names)
+
+    if graphs and dev.type in GRAPH_DEVICE_TYPES:
+        key = (names, os.environ.get(FUSED_DRIVER_ENV, "0"), id(tables),
+               pad_x)
+        captured = block.capture(key, lambda: CapturedStep(
+            new_loop(), state0, key, tables))
+        captured.load(state0)
+        loop, run = captured.loop, captured.run
+    else:
+        loop = new_loop()
+        loop.state = state0
+        run = loop.run
     ppt = torch.empty((n_steps, 4, shape[0]), dtype=dtype, device=dev)
     profiles = {n: torch.empty((n_steps,) + shape, dtype=dtype, device=dev)
                 for n in names}
-    st = state0
-    for i in range(n_steps):
-        st, p, profs = step(st, istep0 + i)
-        ppt[i] = p
-        for n, v in profs.items():
-            profiles[n][i] = v
-    return st, StepOutputs(ppt_rain=ppt[:, 0], ppt_snow=ppt[:, 1],
-                           ppt_graupel=ppt[:, 2], ppt_ice=ppt[:, 3],
-                           profiles=profiles)
+    for i0 in range(0, n_steps, CHUNK_STEPS):
+        k = min(CHUNK_STEPS, n_steps - i0)
+        loop.start_chunk(case.modulation_table(istep0 + i0, k, dtype))
+        run(k)
+        ppt[i0:i0 + k] = loop.ppt[:k]
+        for n, out in profiles.items():
+            out[i0:i0 + k] = loop.profiles[n][:k]
+    return KidState(*[t.clone() for t in loop.state]), StepOutputs(
+        ppt_rain=ppt[:, 0], ppt_snow=ppt[:, 1], ppt_graupel=ppt[:, 2],
+        ppt_ice=ppt[:, 3], profiles=profiles)
 
 
 def run_case(case: Case, dtype=torch.float64, n_steps=None,

@@ -12,6 +12,7 @@ are exact selections of the same table cells.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -67,6 +68,17 @@ _LOG_TA_NA = np.log(_TA_NA)
 _LOG_TA_WW = np.log(_TA_WW)
 
 
+@functools.lru_cache(maxsize=8)
+def _axes(dtype, device):
+    """The activation table's na and w axes on ``device``: float64 for the
+    bin search, their logs in ``dtype``.  Made once, so that a step copies
+    nothing from the host (a CUDA graph cannot capture such a copy)."""
+    return (torch.as_tensor(_TA_NA, device=device),
+            torch.as_tensor(_TA_WW, device=device),
+            torch.as_tensor(_LOG_TA_NA, dtype=dtype, device=device),
+            torch.as_tensor(_LOG_TA_WW, dtype=dtype, device=device))
+
+
 def activ_ncloud(tt, ww, nccn, tnccn_corners):
     """CCN activation by bilinear log-interpolation into the activation
     table's (l=2, m=1) plane (f90:4451-4526); ``tnccn_corners`` is the
@@ -77,19 +89,16 @@ def activ_ncloud(tt, ww, nccn, tnccn_corners):
                           float(c.TA_NA[-1]) - 1.0)
     w_local = torch.clamp(ww, float(c.TA_WW[0]) + 0.001,
                           float(c.TA_WW[-1]) - 1.0)
+    ta_na, ta_ww, log_na, log_ww = _axes(dtype, dev)
     # bin search in float64, where every value of either type is exact
-    i = torch.clamp(torch.searchsorted(
-        torch.as_tensor(_TA_NA, device=dev), n_local.double(), right=True),
-        1, len(_TA_NA) - 1)
-    j = torch.clamp(torch.searchsorted(
-        torch.as_tensor(_TA_WW, device=dev), w_local.double(), right=True),
-        1, len(_TA_WW) - 1)
+    i = torch.clamp(torch.searchsorted(ta_na, n_local.double(), right=True),
+                    1, len(_TA_NA) - 1)
+    j = torch.clamp(torch.searchsorted(ta_ww, w_local.double(), right=True),
+                    1, len(_TA_WW) - 1)
     k = torch.clamp(torch.round((tt - float(c.TA_TK[0])) * 0.1)
                     .to(torch.int64) + 1, 1, len(c.TA_TK)) - 1
     nj, nk = len(_TA_WW), len(c.TA_TK)
     a, b, cc, dd = tnccn_corners[(i * nj + j) * nk + k].unbind(-1)
-    log_na = torch.as_tensor(_LOG_TA_NA, dtype=dtype, device=dev)
-    log_ww = torch.as_tensor(_LOG_TA_WW, dtype=dtype, device=dev)
     x1, x2 = log_na[i - 1], log_na[i]
     y1, y2 = log_ww[j - 1], log_ww[j]
     t = (torch.log(n_local) - x1) / (x2 - x1)

@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(BLOCK,
     fused_kid_step_kernel(const T* __restrict__ x, const T* __restrict__ prof,
                           T* __restrict__ y, T* __restrict__ ppt, int ncol,
                           int nz, int l_sediment, double nt_c, double dt,
-                          double ifdry, double mmod) {
+                          double ifdry, const T* __restrict__ mmod) {
   __shared__ Shared<T> sh;
   __shared__ T raw[N_KID][BLOCK];
   __shared__ T face[N_KID][kMaxWarps];
@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(BLOCK,
 
   // face fluxes rho0*w of this level's bottom (kl) and top (kl+1) faces;
   // the end faces of the column carry no flux
-  const T m = (T)mmod;
+  const T m = *mmod;
   const T w_lo = m * pr[R_wpat * np1];
   const T w_hi = m * pr[R_wpat * np1 + 1];
   const T f_lo = kl == 0 ? (T)0 : w_lo;
@@ -192,7 +192,7 @@ int with_kernel(int nz, int iiwarm, int want_rates, F f) {
 template <typename T>
 int launch(const T* x, const T* prof, T* y, T* ppt, int ncol, int nz,
            int iiwarm, int want_rates, int l_sediment, double nt_c, double dt,
-           double ifdry, double mmod, void* stream) {
+           double ifdry, const T* mmod, void* stream) {
   return with_kernel<T>(nz, iiwarm, want_rates, [&](auto kernel) {
     return launch_columns(kernel, ncol, nz, stream, x, prof, y, ppt, ncol,
                           nz, l_sediment, nt_c, dt, ifdry, mmod);
@@ -212,13 +212,15 @@ extern "C" int kid_fused_kid_step_resources(int nz, int f64, int iiwarm,
 
 // C interface, loaded with ctypes by kid_tpu_torch/micro/fused_kid_step.py.
 // x: (12 + ntv, ncol, nz), prof: (5, nz + 1), y: (12 [+36], ncol, nz),
-// ppt: (4, ncol), all contiguous on the card; mmod is m(t) in the state's
-// dtype.  Returns the cudaError_t of the launch.
+// ppt: (4, ncol), all contiguous on the card; mmod points to m(t), one
+// value of the state's dtype on the card (read by the kernel, so a CUDA
+// graph that captures the launch reads each replay's m).  Returns the
+// cudaError_t of the launch.
 extern "C" int kid_fused_kid_step_f32(const float* x, const float* prof,
                                       float* y, float* ppt, int ncol, int nz,
                                       int iiwarm, int want_rates,
                                       int l_sediment, double nt_c, double dt,
-                                      double ifdry, double mmod,
+                                      double ifdry, const float* mmod,
                                       void* stream) {
   return launch<float>(x, prof, y, ppt, ncol, nz, iiwarm, want_rates,
                        l_sediment, nt_c, dt, ifdry, mmod, stream);
@@ -228,7 +230,7 @@ extern "C" int kid_fused_kid_step_f64(const double* x, const double* prof,
                                       double* y, double* ppt, int ncol,
                                       int nz, int iiwarm, int want_rates,
                                       int l_sediment, double nt_c, double dt,
-                                      double ifdry, double mmod,
+                                      double ifdry, const double* mmod,
                                       void* stream) {
   return launch<double>(x, prof, y, ppt, ncol, nz, iiwarm, want_rates,
                         l_sediment, nt_c, dt, ifdry, mmod, stream);

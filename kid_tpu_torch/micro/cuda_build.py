@@ -256,3 +256,23 @@ def reset_launch_counts():
 def launch_counts() -> dict:
     """Every kernel's launch count by kernel name."""
     return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def add_launches(counts: dict, times: int = 1):
+    """Add ``times`` x ``counts`` (kernel name -> launches) to the launch
+    counts.  The wrappers count when they run, but a CUDA graph's replay
+    launches its captured kernels without running them, so the driver loop
+    adds a capture's launches once for each replay."""
+    for k, fn in wrappers().items():
+        fn.launches += times * counts.get(k, 0)
+
+
+def take_launches(fn) -> dict:
+    """Run ``fn()``; returns the launches the wrappers counted during it
+    (kernel name -> launches) and takes them back out of the counts: a
+    capture launches nothing, and a warm-up's results are thrown away."""
+    before = launch_counts()
+    fn()
+    taken = {k: n - before[k] for k, n in launch_counts().items()}
+    add_launches(taken, -1)
+    return taken

@@ -13,7 +13,10 @@ reference does.
 For a CUDA tensor the wrapper launches the kernel of
 ``csrc/fused_kid_step.cu``; for a CPU tensor it runs
 ``fused_kid_step_ref``, the plain PyTorch version.  There is no fallback
-between the two.  ``fused_kid_step.launches`` counts the kernel launches.
+between the two.  ``fused_kid_step.launches`` counts the kernel launches
+(a CUDA graph's replay adds its capture's, ``cuda_build.add_launches``).
+The kernel reads m(t) from the card, so a captured launch reads each
+replay's m.
 """
 from __future__ import annotations
 
@@ -33,17 +36,12 @@ N_KID = len(KidState._fields)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _P]
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P, _P]
 
 
 def _check_cfg(cfg: MicroConfig):
     if cfg.is_aerosol_aware:
         raise ValueError("fused_kid_step takes non-aerosol configs")
-
-
-def _in_dtype(v: float, dtype) -> float:
-    """``v`` rounded to ``dtype``, as a Python float."""
-    return float(torch.tensor(float(v), dtype=dtype))
 
 
 def pack_kid_inputs(st: KidState, tv, w_pat_prof, pres_prof, exner_prof,
@@ -66,12 +64,13 @@ def pack_kid_inputs(st: KidState, tv, w_pat_prof, pres_prof, exner_prof,
     return x, prof
 
 
-def launch_kid_packed(x, prof, mmod: float, cfg: MicroConfig, dt_f: float,
+def launch_kid_packed(x, prof, mmod, cfg: MicroConfig, dt_f: float,
                       want_rates: bool):
-    """Launch the kernel on ``x`` and ``prof`` (see ``pack_kid_inputs``) on
-    the current stream, without synchronising.  Returns ``y``
-    (12 [+36], ncol, nz), the new state in ``KidState`` order and the
-    ``solver.DIAG_KEYS`` profiles, and ``ppt`` (4, ncol)."""
+    """Launch the kernel on ``x`` and ``prof`` (see ``pack_kid_inputs``) and
+    ``mmod``, m(t) as a one-element tensor of their dtype and device which
+    the kernel reads, on the current stream, without synchronising.
+    Returns ``y`` (12 [+36], ncol, nz), the new state in ``KidState`` order
+    and the ``solver.DIAG_KEYS`` profiles, and ``ppt`` (4, ncol)."""
     ncol, nz = cuda_build.check_packed(x, N_KID + len(S.tv_keys(cfg)),
                                        "fused_kid_step")
     _check_cfg(cfg)
@@ -79,6 +78,10 @@ def launch_kid_packed(x, prof, mmod: float, cfg: MicroConfig, dt_f: float,
             or prof.device != x.device or not prof.is_contiguous()):
         raise ValueError(f"profiles must be a contiguous (5, {nz + 1}) "
                          "tensor of the input's dtype and device")
+    if (mmod.numel() != 1 or mmod.dtype != x.dtype
+            or mmod.device != x.device):
+        raise ValueError("mmod must be one value of the input's dtype on "
+                         "its device")
     n_out = N_KID + (len(S.DIAG_KEYS) if want_rates else 0)
     y = torch.empty((n_out, ncol, nz), dtype=x.dtype, device=x.device)
     ppt = torch.empty((4, ncol), dtype=x.dtype, device=x.device)
@@ -89,7 +92,7 @@ def launch_kid_packed(x, prof, mmod: float, cfg: MicroConfig, dt_f: float,
         err = fn(x.data_ptr(), prof.data_ptr(), y.data_ptr(),
                  ppt.data_ptr(), ncol, nz, int(cfg.iiwarm), int(want_rates),
                  int(cfg.l_sediment), float(cfg.nt_c), dt,
-                 float(1 - cfg.ifdry), _in_dtype(mmod, x.dtype), stream)
+                 float(1 - cfg.ifdry), mmod.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_kid_step kernel launch failed: cudaError "
                            f"{err}")
@@ -104,7 +107,7 @@ def unpack_kid_outputs(y, ppt, want_rates: bool):
     return state, Precip(*ppt), diag
 
 
-def fused_kid_step_ref(st: KidState, w_pat_prof, mmod: float, tv,
+def fused_kid_step_ref(st: KidState, w_pat_prof, mmod, tv,
                        pres_prof, exner_prof, rho0_prof, dz_prof,
                        cfg: MicroConfig, dt_f: float, want_rates: bool):
     """The plain PyTorch version of the kernel on any device: the body of
@@ -116,7 +119,7 @@ def fused_kid_step_ref(st: KidState, w_pat_prof, mmod: float, tv,
     def row(a):
         return torch.as_tensor(a, dtype=dtype, device=dev).reshape(1, -1)
 
-    w_face = _in_dtype(mmod, dtype) * row(w_pat_prof)       # (1, nz+1)
+    w_face = mmod * row(w_pat_prof)                         # (1, nz+1)
     exner, rho0, dz = row(exner_prof), row(rho0_prof), row(dz_prof)
     dt, _ = S._dt_pair(dt_f, dtype)
     q = torch.stack(list(st))                               # all 12
@@ -138,7 +141,7 @@ def fused_kid_step_ref(st: KidState, w_pat_prof, mmod: float, tv,
     return new, ppt, diag
 
 
-def fused_kid_step(st: KidState, w_pat_prof, mmod: float, tv, pres_prof,
+def fused_kid_step(st: KidState, w_pat_prof, mmod, tv, pres_prof,
                    exner_prof, rho0_prof, dz_prof, cfg: MicroConfig,
                    dt_f: float, want_rates: bool):
     """One fused 1-D driver step for (ncol, nz) columns.
@@ -147,14 +150,15 @@ def fused_kid_step(st: KidState, w_pat_prof, mmod: float, tv, pres_prof,
       st:         the raw ``KidState`` (theta, not T).
       w_pat_prof: (nz+1,) rho0*w face pattern, the same for every column;
                   the faces' flux is ``mmod * w_pat_prof``.
-      mmod:       the time modulation m(t), taken in the state's dtype.
+      mmod:       the time modulation m(t), a 0-d tensor of the state's
+                  dtype on its device (the kernel reads it there).
       tv:         the table-stage channels (``solver.tv_keys(cfg)``).
       pres/exner/rho0/dz_prof: (nz,) case profiles.
     A CPU tensor runs ``fused_kid_step_ref``; a CUDA tensor launches the
     kernel (float32 or float64, nz <= 256, non-aerosol configs) or raises.
     Returns (new KidState, Precip of (ncol,) tensors, diag dict)."""
     _check_cfg(cfg)
-    dev = cuda_build.same_device("fused_kid_step", *st, *tv.values())
+    dev = cuda_build.same_device("fused_kid_step", *st, *tv.values(), mmod)
     if dev.type == "cpu":
         return fused_kid_step_ref(st, w_pat_prof, mmod, tv, pres_prof,
                                   exner_prof, rho0_prof, dz_prof, cfg, dt_f,

@@ -10,7 +10,8 @@ The kernel is built at first use by ``cuda_build`` (nvcc, ``build/`` at
 the repository root, keyed by a hash of every kernel source, the
 generated constants header and the flags) and bound through a plain C
 interface with ``ctypes``.  ``fused_step.launches`` counts the kernel
-launches.
+launches; a CUDA graph's replay adds the launches its capture recorded
+(``cuda_build.add_launches``, from ``driver/loop.py``).
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ tendencies.  So the step splits in two around a lookup stage in torch ops
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs its plain version.  The kernels are built by
 ``cuda_build`` and bound with ``ctypes``; ``fused_rates.launches`` and
-``fused_post.launches`` count the launches.
+``fused_post.launches`` count the launches, and a CUDA graph's replay adds
+the launches its capture recorded (``cuda_build.add_launches``).
 """
 from __future__ import annotations
 

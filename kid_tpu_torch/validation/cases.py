@@ -31,7 +31,8 @@ import torch
 
 from ..device import resolve_device
 from ..driver.cases import CASES
-from ..driver.loop import KidState, initial_state, make_step, simulate
+from ..driver.loop import (BLOCKS, KidState, initial_state, make_step,
+                           simulate)
 from ..micro import cuda_build
 from ..micro.solver import device_tables
 from ..tables.cache import get_tables
@@ -84,19 +85,15 @@ def run_ref_precision_model(case, n_steps: int, device="cuda"):
     series of column 0), as numpy."""
     dev = resolve_device(device)
     dtype = torch.float64
-    grid = case.grid()
     tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype, dev)
-
-    def pattern(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    pres2 = torch.broadcast_to(pattern(grid.pres), (case.nx, case.nz))
-    step = make_step(case, tables, dtype, dev,
-                     pattern(case.rhow_pattern(grid)), None, pres2, None, ())
     st = initial_state(case, dtype, dev)
+    fl = BLOCKS.get(case, dtype, st.qv.device).flow
+    step = make_step(case, tables, dtype, dev, fl.w_pat, None, fl.pres2,
+                     None, ())
+    m = torch.from_numpy(case.modulation_table(0, n_steps, dtype)).to(dev)
     rain = torch.empty(n_steps, dtype=dtype, device=dev)
     for i in range(n_steps):
-        st, ppt, _ = step(st, i)
+        st, ppt, _ = step(st, m[i])
         st = KidState(*[x.float().double() for x in st])
         rain[i] = ppt[0, 0]
     return ({f: _host(getattr(st, f)) for f in KidState._fields},

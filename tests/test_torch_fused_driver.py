@@ -88,7 +88,7 @@ def test_fused_kid_step_ref_matches_jax_kernel(name, want_rates):
         want_rates, interpret=True)
     got = FK.fused_kid_step(
         KidState(**{k: torch.as_tensor(v) for k, v in st.items()}),
-        torch.as_tensor(w_pat), m,
+        torch.as_tensor(w_pat), torch.tensor(m, dtype=torch.float64),
         {k: torch.as_tensor(v) for k, v in tv.items()},
         *[torch.as_tensor(a) for a in profs], cfg, jcase.dt, want_rates)
     assert isinstance(got[0], KidState)
@@ -193,8 +193,8 @@ def test_pack_kid_inputs_layout():
         assert float(prof[i, nz]) == 0.0
     # a CPU tensor never reaches the launcher
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        FK.launch_kid_packed(x, prof, m, cfg, jcase.dt, False)
+        FK.launch_kid_packed(x, prof, torch.tensor(m), cfg, jcase.dt, False)
     with pytest.raises(ValueError, match="non-aerosol"):
-        FK.fused_kid_step(kst, w_pat, m, ttv, grid.pres, grid.exner,
-                          grid.rho0, grid.dz,
+        FK.fused_kid_step(kst, w_pat, torch.tensor(m), ttv, grid.pres,
+                          grid.exner, grid.rho0, grid.dz,
                           tcases.AEROSOL1D.micro, jcase.dt, False)

@@ -22,7 +22,7 @@ from kid_tpu.tables.cache import get_tables as j_get_tables
 from kid_tpu_torch import special as tspecial
 from kid_tpu_torch.__main__ import main as cli_main
 from kid_tpu_torch.convert import state_from_numpy, tables_from_numpy
-from kid_tpu_torch.driver.cases import AEROSOL1D, MIXED1
+from kid_tpu_torch.driver.cases import AEROSOL1D, MIXED1, WARM1_RECON
 from kid_tpu_torch.driver.loop import initial_state, run_case
 from kid_tpu_torch.micro import fastmath as tfast
 from kid_tpu_torch.micro import fused_step as fs
@@ -208,6 +208,74 @@ def test_kernel_budget_counts_sass_instructions(monkeypatch):
     assert K.sass_counts(Path("lib.so")) == {
         "f32 mixed rates=0 block=128": (5, 1, 1, 1),
         "f64 warm  rates=1 block=256": (1, 0, 1, 0)}
+
+
+def test_kernel_budget_passes_m_to_fused_kid_step_as_a_tensor(monkeypatch):
+    import chip_smoke as C
+    import kernel_budget as K
+    from kid_tpu_torch.micro import fused_kid_step as FK
+    seen = []
+
+    def launch(x, prof, mmod, cfg, dt_f, want_rates):
+        assert isinstance(mmod, torch.Tensor) and mmod.numel() == 1
+        assert mmod.dtype == x.dtype and mmod.device == x.device
+        seen.append((x.dtype, float(mmod)))
+
+    monkeypatch.setattr(FK, "launch_kid_packed", launch)
+    monkeypatch.setattr(C, "BATCH_NCOL", 3)
+    launches = K.step_batches(torch.device("cpu"), {"fused_kid_step"})
+    # nz 33/120/256, float32/float64, mixed/warm, rates off/on
+    assert len(launches) == 24
+    for _, stem, fn in launches:
+        assert stem == "fused_kid_step"
+        fn()
+    # m(t) of kid_step_inputs (a float64 value), rounded to each dtype
+    ms = {C.kid_step_inputs(dataclasses.replace(case, nx=3), torch.float64,
+                            torch.device("cpu"))[1]
+          for case in (MIXED1, WARM1_RECON)}
+    assert {v for dt, v in seen if dt == torch.float64} == ms
+    assert {v for dt, v in seen if dt == torch.float32} == {
+        float(torch.tensor(m, dtype=torch.float32)) for m in ms}
+    # the timed launches take the same path: the script launches the
+    # kernel in one place
+    assert (PKG.parent / "kernel_budget.py").read_text().count(
+        "launch_kid_packed(") == 1
+
+
+def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
+    import chip_smoke as C
+    import kernel_budget as K
+    from kid_tpu_torch.driver import loop
+    from kid_tpu_torch.micro import fused_kid_step as FK
+    seen = []
+
+    def stub(stem):
+        def launch(x, *args):
+            seen.append((stem, x.dtype, next(
+                a for a in args if hasattr(a, "is_aerosol_aware"))))
+        return launch
+
+    packed = torch.zeros(1, 2, 3)
+    last = {"pack_inputs": packed, "pack_kid_inputs": (packed, packed),
+            "pack_rates_inputs": packed, "pack_post_inputs": packed}
+    monkeypatch.setattr(loop, "run_case", lambda *a, **k: (None, None))
+    monkeypatch.setattr(loop, "simulate", lambda *a, **k: None)
+    monkeypatch.setattr(C, "recording", lambda packers: (last, lambda: None))
+    monkeypatch.setattr(C, "MAIN_NX", 3)
+    monkeypatch.setattr(fs, "launch_packed", stub("fused_step"))
+    monkeypatch.setattr(FK, "launch_kid_packed", stub("fused_kid_step"))
+    monkeypatch.setattr(ss, "launch_rates_packed", stub("fused_rates"))
+    monkeypatch.setattr(ss, "launch_post_packed", stub("fused_post"))
+    launches = K.timed_inputs(torch.device("cpu"), set(K.STEMS))
+    for label, stem, fn in launches:
+        fn()
+    # the main paths' launches first, each with its own case's config
+    assert [s[0] for s in seen[:4]] == ["fused_step", "fused_kid_step",
+                                        "fused_rates", "fused_post"]
+    assert [s[2].is_aerosol_aware for s in seen[:4]] == [False, False,
+                                                         True, True]
+    assert [stem for _, stem, _ in launches] == [s[0] for s in seen]
+    assert len(launches) == 4 + 3 * 3
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
