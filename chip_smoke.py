@@ -73,16 +73,17 @@ on failure:
      windows;
   6a. distribution: cumulus2d at its 64 x 60 for all 900 steps in float32
      in one process and on 2 ranks of the card (``dist.launch``, gloo,
-     halo slabs staged through the host), the same bits, the sharded run
-     scored as the reference's ``cumulus2d_sharded`` row;
+     halo slabs staged through the host, each rank replaying a CUDA graph
+     of its step with the exchange between two replays), the same bits,
+     one exchange and one ``fused_step`` launch a step on each rank, the
+     sharded run scored as the reference's ``cumulus2d_sharded`` row;
   6b. the flagship, cumulus2d at 131072 x 60 (2048 copies of its
      64-column circulation) in float32: 150 spin-up steps, 20 steps timed
      and profiled, ``simulate``'s set-up per call (a 0-step call, and the
      flow built as each call built it before it was kept), ``fused_step``
-     on the path's last input, then the same 20 steps on 2 ranks (the
-     eager loop) from the spun-up state, the same bits; ms/step,
-     column-steps/s, the exchange's share of a rank's step and peak device
-     memory;
+     on the path's last input, then the same 20 steps on 2 ranks (graphed)
+     from the spun-up state, the same bits; ms/step, column-steps/s, each
+     rank's ms/step, exchange share, capture ms and peak device memory;
   7. the five 1-D cases at full length in float32 through
      ``validation.cases``, against the oracle's float64 finals in
      ``validation_finals/`` with the reference's fixed budgets, the
@@ -95,13 +96,18 @@ on failure:
      with ``graphs=False`` and then graphed (the default), in float32:
      the same bits in the final state and every stream and the same
      launches; wall and device ms/step, busy share, kernels per step, the
-     capture's ms and peak device memory of both.
+     capture's ms and peak device memory of both; then cumulus2d (900
+     steps, every stream) and the flagship (20 steps from a seeded state,
+     two streams) on 2 ranks of the card, eager and graphed: the same bits
+     in the final state and every stream, one exchange and one
+     ``fused_step`` launch a step on each rank, and each rank's ms/step,
+     exchange share, capture ms and peak device memory in both modes.
 
-Phases 3-3c, 4 (its kernel path), 5, 6b, 7 and 8 and phase 6a's single
-process run ``simulate``'s default: a CUDA graph of the step, captured
-once per case, shape, dtype, tables and streams and replayed once a
-step.  The plain runs of phase 4 and the ranks of phase 6 run the eager
-loop.
+Phases 3-3c, 4 (its kernel path), 5, 6, 7 and 8 run ``simulate``'s and
+``simulate_sharded``'s default: a CUDA graph of the step, captured once
+per case, column block, dtype, tables and streams and replayed once a
+step (a rank exchanges its halo on the host between two replays).  The
+plain runs of phase 4 run the eager loop.
 
 Phases 2, 2b, 2c and 2d print a SHA-256 digest (first 16 hex digits) of
 each kernel's outputs on each batch, and a combined digest per kernel
@@ -170,6 +176,10 @@ GRAPH_CELLS = {
     "fused driver": (20, 150, (), True), "cumulus2d": (900, 0, True, None),
     "orographic2d": (900, 0, True, None),
     "flagship": (20, 150, (), ("qc", "qr", "prr_wau", "dqr_mphys"))}
+# phase 9 on N_RANKS ranks: cell -> (steps, from step, streams, warm-up
+# steps run first and discarded, the capture among them)
+GRAPH_RANK_CELLS = {"cumulus2d": (900, 0, True, 20),
+                    "flagship": (20, 150, ("prr_wau", "dqr_mphys"), 20)}
 N_PROFILED = 5         # steps under the profiler
 # phase 7: the cases that also run the perturbed (chaos) member, those
 # of the reference's chaos envelope (VALIDATION_r05.json)
@@ -1363,12 +1373,40 @@ def phase_wrf(dev, card):
     return counts
 
 
+def check_ranks(label, ranks, n, graphed):
+    """Raise unless every rank made one halo exchange and one
+    ``fused_step`` launch (and no other) a step, and replayed a captured
+    step if ``graphed`` (else ran eagerly)."""
+    for r in ranks:
+        if r["launches"] != {k: n if k == "fused_step" else 0
+                             for k in r["launches"]}:
+            raise AssertionError(f"{label} rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {n} fused_step")
+        if r["exchange_calls"] != n:
+            raise AssertionError(f"{label} rank {r['rank']}: "
+                                 f"{r['exchange_calls']} halo exchanges in "
+                                 f"{n} steps")
+        if (r["capture_ms"] is not None) != graphed:
+            raise AssertionError(f"{label} rank {r['rank']}: capture_ms "
+                                 f"{r['capture_ms']}, graphed {graphed}")
+
+
+def rank_line(ranks) -> str:
+    """Each rank's ms/step (host clock, its own window; the ranks share
+    the card), exchange share, capture ms and peak device memory."""
+    return "; ".join(
+        f"rank {r['rank']} {r['ms_per_step']:.3f} ms/step, exchange "
+        f"{r['exchange_share']:.3f} of it, capture "
+        + ("none" if r["capture_ms"] is None else f"{r['capture_ms']:.1f} ms")
+        + f", peak {r['peak_bytes'] / 2**30:.2f} GiB" for r in ranks)
+
+
 def phase_sharded_2d(dev, card):
     """cumulus2d at its own 64 x 60 for all 900 steps in float32 in one
     process and on N_RANKS ranks on this card (gloo, halo slabs staged
-    through the host): the same bits, and the sharded run scored as the
-    reference's ``cumulus2d_sharded`` row.  Returns the ranks' summed
-    launches."""
+    through the host, each rank graphed): the same bits, and the sharded
+    run scored as the reference's ``cumulus2d_sharded`` row.  Returns the
+    ranks' summed launches."""
     from kid_tpu_torch.driver.cases import CUMULUS2D
     from kid_tpu_torch.validation import twod
     case = CUMULUS2D
@@ -1381,14 +1419,7 @@ def phase_sharded_2d(dev, card):
     if one["launches"] != {k: n if k == "fused_step" else 0
                            for k in one["launches"]}:
         raise AssertionError(f"cumulus2d: launches {one['launches']}")
-    for r in many["ranks"]:
-        if r["launches"] != {k: n if k == "fused_step" else 0
-                             for k in r["launches"]}:
-            raise AssertionError(f"rank {r['rank']}: launches "
-                                 f"{r['launches']}, expected {n} fused_step")
-        if r["exchange_calls"] != n:
-            raise AssertionError(f"rank {r['rank']}: {r['exchange_calls']} "
-                                 f"halo exchanges in {n} steps")
+    check_ranks("cumulus2d", many["ranks"], n, True)
     if not twod.same_bits(one, many):
         diffs = {f: float(np.abs(one["final"][f] - many["final"][f]).max())
                  for f in one["final"]}
@@ -1396,15 +1427,12 @@ def phase_sharded_2d(dev, card):
                              f"one process: {diffs}")
     entry = twod.score(case, many)
     ranks = many["ranks"]
-    own = ", ".join(f"{r['seconds']:.1f}" for r in ranks)
-    share = ", ".join(f"{r['exchange_seconds'] / r['seconds']:.3f}"
-                      for r in ranks)
     print(f"sharded cumulus2d ({case.nx}, {case.nz}) f32, {n} steps on "
           f"{N_RANKS} ranks ({', '.join(r['device'] for r in ranks)}, gloo, "
-          f"host-staged halos): bit for bit the single-process run (finals "
-          f"and the four precip series); one process {t1 - t0:.1f} s, "
-          f"{N_RANKS} ranks {t2 - t1:.1f} s with spawning (the ranks' own "
-          f"runs {own} s, the exchange {share} of them); "
+          f"host-staged halos, graphed): bit for bit the single-process run "
+          f"(finals and the four precip series); one process "
+          f"{t1 - t0:.1f} s, {N_RANKS} ranks {t2 - t1:.1f} s with spawning; "
+          f"{rank_line(ranks)} (each rank's window holds its capture); "
           f"{many['launches']['fused_step']} fused_step launches in all "
           f"[{card}]", flush=True)
     print("  " + twod.line("cumulus2d_sharded", entry), flush=True)
@@ -1418,8 +1446,8 @@ def phase_flagship(dev, card):
     levels in float32, FLAGSHIP_SPIN spin-up steps, then FLAGSHIP_STEPS
     steps timed in one process (after the same window once untimed) and
     profiled, ``fused_step`` on the path's last input, and the same steps
-    on N_RANKS ranks of this card from the spun-up state: the same bits.
-    Returns the timed window's ``fused_step`` launches."""
+    on N_RANKS ranks of this card (graphed) from the spun-up state: the
+    same bits.  Returns the timed window's ``fused_step`` launches."""
     import kid_tpu_torch.micro.fused_step as F
     from kid_tpu_torch.dist import launch
     from kid_tpu_torch.driver.cases import CUMULUS2D
@@ -1532,22 +1560,14 @@ def phase_flagship(dev, card):
     if diffs:
         raise AssertionError(f"flagship on {N_RANKS} ranks differs from one "
                              f"process: {diffs}")
-    for r in sharded.ranks:
-        if r["launches"]["fused_step"] != n or r["exchange_calls"] != n:
-            raise AssertionError(f"flagship rank {r['rank']}: {r}")
-    rank_ms = ", ".join(f"{r['seconds'] * 1e3 / n:.3f}" for r in sharded.ranks)
-    share = ", ".join(f"{r['exchange_seconds'] / r['seconds']:.3f}"
-                      for r in sharded.ranks)
-    rank_peak = ", ".join(f"{r['peak_bytes'] / 2**30:.2f}"
-                          for r in sharded.ranks)
+    check_ranks("flagship", sharded.ranks, n, True)
     print(f"flagship on {N_RANKS} ranks "
           f"({', '.join(r['device'] for r in sharded.ranks)}, gloo, "
-          f"host-staged halos), the same {n} steps from the spun-up state: bit for bit "
-          f"the single-process run (finals and the four precip series); "
-          f"{ranks_s:.1f} s with spawning and {n} warm-up steps; each rank's "
-          f"window {rank_ms} ms/step (host clock, both ranks sharing the "
-          f"card), the exchange {share} of it, peak device memory "
-          f"{rank_peak} GiB [{card}]", flush=True)
+          f"host-staged halos, graphed), the same {n} steps from the "
+          f"spun-up state: bit for bit the single-process run (finals and "
+          f"the four precip series); {ranks_s:.1f} s with spawning and {n} "
+          f"warm-up steps (the capture among them); "
+          f"{rank_line(sharded.ranks)} [{card}]", flush=True)
     return counts["fused_step"]
 
 
@@ -1705,7 +1725,58 @@ def phase_graphs_vs_eager(dev, card):
               f"{e['wall_ms'] / g['wall_ms']:.2f}x [{card}]", flush=True)
         rows[label] = row
     BLOCKS.clear()
+    for label in GRAPH_RANK_CELLS:
+        rows[f"{label} on {N_RANKS} ranks"] = ranks_graphs_vs_eager(
+            dev, card, label, wide[label])
     return rows
+
+
+def ranks_graphs_vs_eager(dev, card, label, case):
+    """A cell of GRAPH_RANK_CELLS on N_RANKS ranks of this card, eager and
+    then graphed, in float32: the same bits in the final state and every
+    stream, one exchange and one ``fused_step`` launch a step on each
+    rank; each rank's ms/step, exchange share, capture ms and peak device
+    memory in both modes.  Returns {mode: the ranks' numbers}."""
+    from kid_tpu_torch.dist import launch
+    from kid_tpu_torch.driver.loop import KidState, initial_state
+    n, i0, names, warm = GRAPH_RANK_CELLS[label]
+    dtype = torch.float32
+    st0 = (KidState(*[t.to(dtype) for t in seeded_state(case, dev)])
+           if i0 else initial_state(case, dtype, dev))
+    runs, secs = {}, {}
+    for mode, graphs in (("eager", False), ("graphed", True)):
+        t0 = time.perf_counter()
+        runs[mode] = launch.run_sharded(
+            case, N_RANKS, n, dtype, *launch.default_layout(N_RANKS, dev),
+            istep0=i0, state0=st0, profile_diags=names, warmup_steps=warm,
+            graphs=graphs)
+        secs[mode] = time.perf_counter() - t0
+        check_ranks(f"{label} {mode}", runs[mode].ranks, n, graphs)
+    e, g = runs["eager"], runs["graphed"]
+    pairs = [*((f, g.fields[f], e.fields[f]) for f in KidState._fields),
+             *((k, g.ppt[k], e.ppt[k]) for k in PPT)]
+    if set(g.profiles) != set(e.profiles):
+        raise AssertionError(f"{label} on ranks: streams differ")
+    pairs += [(k, v, e.profiles[k]) for k, v in g.profiles.items()]
+    for k, a, b in pairs:
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label} on {N_RANKS} ranks: graphed and "
+                                 f"eager differ in {k}")
+    check_finite_nonnegative(f"{label} on ranks", {
+        k: torch.from_numpy(v) for k, v in (*g.fields.items(),
+                                            *g.ppt.items())})
+    ms = {m: float(np.mean([r["ms_per_step"] for r in runs[m].ranks]))
+          for m in runs}
+    print(f"graphs vs eager {label} ({case.nx}, {case.nz}) f32 on "
+          f"{N_RANKS} ranks ({', '.join(r['device'] for r in g.ranks)}, "
+          f"gloo), {n} steps from step {i0} after {warm} warm-up steps: the "
+          f"same bits in the final state and {len(pairs) - 12} streams, one "
+          f"exchange and one fused_step launch a step on each rank; "
+          + "; ".join(f"{m} ({secs[m]:.1f} s with spawning): "
+                      f"{rank_line(runs[m].ranks)}" for m in runs)
+          + f"; rank wall {ms['eager'] / ms['graphed']:.2f}x [{card}]",
+          flush=True)
+    return {m: runs[m].ranks for m in runs}
 
 
 def phase_bench(dev):

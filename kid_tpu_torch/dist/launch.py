@@ -15,7 +15,10 @@ initial state into a run directory once, starts one process per rank
 runs ``simulate_sharded`` and gathers the result on rank 0, which writes
 it back.  The devices and the backend are chosen in the parent and passed
 to every rank: with one card every rank runs on ``cuda:0`` under gloo,
-its halo slabs staged through the host; with a card per rank, NCCL.
+its halo slabs staged through the host (the ranks' processes time-slice
+the card); with a card per rank, NCCL.  On a card each rank replays a
+CUDA graph of its step, the exchange between two replays
+(``run_sharded(..., graphs=False)``: the eager loop).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..driver.cases import CASES
-from ..driver.loop import KidState, initial_state
+from ..driver.loop import BLOCKS, KidState, initial_state
 from ..micro import cuda_build
 from ..micro.solver import device_tables
 from ..tables.builders import Tables
@@ -50,8 +53,9 @@ class ShardedRun(NamedTuple):
     fields: dict      # KidState field -> (nx, nz)
     ppt: dict         # ppt_rain, ... -> (n_steps, nx)
     profiles: dict    # stream name -> (n_steps, nx, nz)
-    ranks: list       # per rank: seconds, exchange calls and seconds,
-    #                   kernel launches, peak device bytes
+    ranks: list       # per rank: seconds, ms/step, exchange calls,
+    #                   seconds and share, capture ms, kernel launches,
+    #                   peak device bytes (warm-up and capture included)
 
 
 def default_layout(n_ranks: int, device="cuda") -> tuple:
@@ -83,12 +87,17 @@ def _case_spec(case) -> tuple:
 
 
 def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
-               n_steps, istep0, profile_diags, warmup_steps, threads):
+               n_steps, istep0, profile_diags, warmup_steps, graphs,
+               threads):
     """One rank: its block of the state from ``run_dir``, optional warm-up
-    steps (discarded), then the run, timed on the host clock with the
-    kernels' launch counts and the exchange counters set to 0 just
-    before; rank 0 writes the gathered result and every rank's numbers
-    into ``run_dir``."""
+    steps (discarded; a graphed rank captures its step there), then the
+    run, timed on the host clock with the kernels' launch counts and the
+    exchange counters set to 0 just before; rank 0 writes the gathered
+    result and every rank's numbers into ``run_dir``.  ``capture_ms``:
+    the host time of the rank's capture (warm-up step and capture), None
+    if it ran eagerly; ``peak_bytes``: the most device memory allocated
+    in the warm-up and the run (a graph's pool is allocated at its
+    capture; its replays allocate nothing)."""
     torch.set_num_threads(threads)
     run_dir = Path(run_dir)
     name, changed = case_spec
@@ -102,24 +111,32 @@ def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
         state0 = KidState(*torch.from_numpy(np.load(run_dir / "state0.npy")))
         st = KidState(*[t.to(dev) for t in shard_state(state0, rank, n)])
         tables = device_tables(host_tables, st.qv.dtype, dev)
+        if dev.type == "cuda":      # the peak holds the warm-up and capture
+            torch.cuda.reset_peak_memory_stats(dev)
         if warmup_steps:
             simulate_sharded(KidState(*[t.clone() for t in st]), tables,
-                             case, warmup_steps, group, False, istep0, dev)
+                             case, warmup_steps, group, profile_diags,
+                             istep0, dev, graphs)
         cuda_build.reset_launch_counts()
         halo_exchange_x.calls, halo_exchange_x.seconds = 0, 0.0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
         dist.barrier(group)
         t0 = time.perf_counter()
         final, streams = simulate_sharded(st, tables, case, n_steps, group,
-                                          profile_diags, istep0, dev)
+                                          profile_diags, istep0, dev, graphs)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        captured = BLOCKS.get(case, st.qv.dtype, st.qv.device,
+                              *column_block(case.nx, rank, n)).captured
         stats = dict(
-            rank=rank, device=str(dev), seconds=time.perf_counter() - t0,
+            rank=rank, device=str(dev), seconds=seconds,
+            ms_per_step=seconds * 1e3 / max(n_steps, 1),
             exchange_calls=halo_exchange_x.calls,
             exchange_seconds=halo_exchange_x.seconds,
+            exchange_share=halo_exchange_x.seconds / seconds,
+            capture_ms=captured.ms if captured else None,
             launches=cuda_build.launch_counts(),
             peak_bytes=(torch.cuda.max_memory_allocated(dev)
                         if dev.type == "cuda" else None))
@@ -147,14 +164,17 @@ def _host(a) -> np.ndarray:
 
 def run_sharded(case, n_ranks: int, n_steps: int, dtype=torch.float64,
                 devices=None, backend=None, istep0: int = 0, state0=None,
-                profile_diags=False, warmup_steps: int = 0) -> ShardedRun:
+                profile_diags=False, warmup_steps: int = 0,
+                graphs: bool = True) -> ShardedRun:
     """``n_steps`` of ``case`` from ``state0`` (default: the initial
     sounding in ``dtype``) on ``n_ranks`` spawned ranks; returns rank 0's
     gathered ``ShardedRun``.  ``devices`` (one per rank) and ``backend``
     default to ``default_layout(n_ranks)``, which needs a card; pass
     ``devices=["cpu"] * n_ranks`` to run on the CPU.  ``warmup_steps``
     steps run first on every rank and are discarded, so that the timed
-    run (``ShardedRun.ranks``) does not hold first-call costs."""
+    run (``ShardedRun.ranks``) does not hold first-call costs (the
+    capture among them).  ``graphs``: as ``simulate_sharded``'s, on every
+    rank."""
     layout = default_layout(n_ranks) if devices is None else None
     devices = layout[0] if devices is None else list(devices)
     backend = backend or (layout[1] if layout else "gloo")
@@ -177,7 +197,7 @@ def run_sharded(case, n_ranks: int, n_steps: int, dtype=torch.float64,
             _rank_main, nprocs=n_ranks, join=True, args=(
                 run_dir, devices, backend,
                 f"tcp://127.0.0.1:{_free_port()}", spec, n_steps, istep0,
-                profile_diags, warmup_steps,
+                profile_diags, warmup_steps, graphs,
                 max(1, torch.get_num_threads() // n_ranks)))
         with np.load(Path(run_dir) / "result.npz") as z:
             out = {k: z[k] for k in z.files}

@@ -9,8 +9,15 @@ vertical, on a ``torch.device`` given explicitly:
     ``do i=1,nx`` loop, mphys_thompson09n.f90:54), so a step needs no
     communication apart from
   * the 2-column halo of the 2-D x-advection stencil: one ring exchange of
-    the stacked tracers per step (``halo_exchange_x``), the counterpart of
-    the reference's ``lax.ppermute`` pair.
+    the stacked edge columns of the tracers per step (``halo_exchange_x``),
+    the counterpart of the reference's ``lax.ppermute`` pair.
+
+The reference compiles every step of a shard into one program (``jax.jit``
+over ``shard_map`` over ``lax.scan``, the exchange inside).  Here the
+exchange runs on the host between two steps, into a block's ghost buffers
+(``Halo``), and the step only reads them, so that on a card each rank
+captures its step as a CUDA graph (``driver/loop.py``) and replays it once
+a step; the same split runs eagerly on the CPU and with ``graphs=False``.
 
 The vertical is never split.  Where a rank's result must equal the
 single-process run bit for bit, it is because every column sees the same
@@ -18,6 +25,7 @@ operations on the same values; the exchange only moves values.
 """
 from __future__ import annotations
 
+import functools
 import time
 from datetime import timedelta
 
@@ -26,7 +34,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..driver.advection import advective_tendency_x_padded
-from ..driver.loop import BLOCKS, KidState, run_steps
+from ..driver.loop import (BLOCKS, KidState, advected_fields, run_steps,
+                           wrap_x)
 
 HALO = 2                 # ghost columns per side of the MUSCL x stencil
 # a rank that waits this long for the others gives up (a peer has died)
@@ -85,8 +94,9 @@ def halo_exchange_x(q, group, width: int = HALO, axis: int = 0):
 
     Returns (from_left, from_right): the left neighbour's rightmost and
     the right neighbour's leftmost ``width`` columns of the periodic
-    domain.  ``axis`` is the column axis of ``q``, so a whole tracer
-    stack (n_adv, nloc, nz) goes in ONE send/recv pair per direction.
+    domain.  ``axis`` is the column axis of ``q``, so the edge slab of
+    every tracer (``Halo.exchange``: (n_adv, 2*width, nz)) goes in ONE
+    send/recv pair per direction.
     On one rank the periodic wrap is taken locally (P2P refuses sends to
     oneself).
 
@@ -144,33 +154,71 @@ def sharded_tendency_x(q, rhou_face_local, rho0, dx, group):
                                        rhou_face_local, rho0, dx)
 
 
+class Halo:
+    """The ghost columns of a rank's block: ``left`` and ``right``, each
+    (n_adv, HALO, nz) on the block's device, the tracers in
+    ``advected_fields`` order (``make_step``'s stacking order).
+    ``exchange`` fills them from a state between two steps; ``pad_x``, the
+    step's, only reads them, so a CUDA graph of the step can hold it."""
+
+    def __init__(self, case, dtype, device):
+        self.idx = tuple(KidState._fields.index(f)
+                         for f in advected_fields(case.micro))
+        self.left = torch.zeros((len(self.idx), HALO, case.nz), dtype=dtype,
+                                device=device)
+        self.right = torch.zeros_like(self.left)
+
+    def pad_x(self, q):
+        """(n_adv, nloc, nz) -> (n_adv, nloc + 2*HALO, nz)."""
+        return torch.cat([self.left, q, self.right], 1)
+
+    def exchange(self, state: KidState, group):
+        """The edge columns of ``state``'s tracers, stacked as one
+        (n_adv, 2*HALO, nz) slab, through ``halo_exchange_x``; the
+        neighbours' edges are copied into ``left`` and ``right``."""
+        edges = torch.stack([torch.cat([state[i][:HALO], state[i][-HALO:]])
+                             for i in self.idx])
+        left, right = halo_exchange_x(edges, group, HALO, axis=1)
+        self.left.copy_(left)
+        self.right.copy_(right)
+
+
 def simulate_sharded(state_local: KidState, tables, case, n_steps: int,
                      group, profile_diags=False, istep0: int = 0,
-                     device="cuda"):
+                     device="cuda", graphs: bool = True):
     """Distributed twin of ``driver.loop.simulate``: the same
     ``make_step`` physics on this rank's block of columns
-    (``state_local``, see ``shard_state``), the stacked tracers halo-
-    exchanged once per step.  The x flux is keyed on ``Case.is_1d``, so a
-    widened 1-D case gets none.  Returns this rank's (final KidState,
-    StepOutputs); ``gather_state`` collects them on rank 0."""
+    (``state_local``, see ``shard_state``), the edge columns of the
+    tracers halo-exchanged once per step, on the host before the step,
+    into the block's ``Halo``.  On a card each rank captures its step as a
+    CUDA graph and replays it (``graphs=False``: the eager loop; the CPU
+    always runs it); a failed capture or replay raises.  Every rank must
+    make the same calls in the same order.  The x flux is keyed on
+    ``Case.is_1d``, so a widened 1-D case gets none and exchanges
+    nothing.  Returns this rank's (final KidState, StepOutputs);
+    ``gather_state`` collects them on rank 0."""
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     lo, hi = column_block(case.nx, rank, n)
     if state_local.qv.shape[0] != hi - lo:
         raise ValueError(f"rank {rank} holds {state_local.qv.shape[0]} "
                          f"columns, its block is {hi - lo}")
     dev = resolve_device(device)
-
-    def pad_x(q):        # (n_adv, nloc, nz): one exchange for all tracers
-        left, right = halo_exchange_x(q, group, HALO, axis=1)
-        return torch.cat([left, q, right], 1)
-
-    # this block's rows of the flow (built once per case and block); the
-    # exchange is a collective, staged through the host under gloo, which a
-    # CUDA graph cannot capture: the loop runs eagerly
+    # this block's rows of the flow and its ghost buffers, made once per
+    # case and block, so that a later call replays the same capture
     block = BLOCKS.get(case, state_local.qv.dtype, state_local.qv.device, lo,
                        hi)
+    pad_x, exchange = wrap_x, None
+    if not case.is_1d:
+        if hi - lo < HALO:
+            raise ValueError(f"a block of {hi - lo} columns is narrower "
+                             f"than the {HALO}-column halo")
+        if block.halo is None:
+            block.halo = Halo(case, state_local.qv.dtype,
+                              state_local.qv.device)
+        pad_x = block.halo.pad_x
+        exchange = functools.partial(block.halo.exchange, group=group)
     return run_steps(state_local, tables, case, n_steps, profile_diags,
-                     istep0, dev, block, pad_x, graphs=False)
+                     istep0, dev, block, pad_x, graphs, exchange)
 
 
 def shard_state(state: KidState, rank: int, world_size: int) -> KidState:

@@ -21,12 +21,17 @@ steps; the streams are copied out once a chunk.  On a CUDA device
 replay a step; on the CPU, and on a card with ``graphs=False``, the same
 step runs eagerly.  ``BLOCKS`` keeps, for each case and column block,
 the flow patterns, built once, and the step last captured on them, keyed
-on what the reference's ``jit`` makes static.
+on what the reference's ``jit`` makes static.  A sharded run
+(``dist/mesh.py``) exchanges its halo on the host between two steps, into
+ghost buffers that the step reads (the reference's ``shard_map`` puts the
+exchange inside its compiled program; a CUDA graph cannot hold a
+host-staged collective).
 """
 from __future__ import annotations
 
 import collections
 import os
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -331,9 +336,12 @@ class StepLoop:
         for buf, t in zip(self.state, self.advance()):
             buf.copy_(t)
 
-    def run(self, n: int):
-        """``n`` steps, eagerly."""
+    def run(self, n: int, exchange=None):
+        """``n`` steps, eagerly; ``exchange(state)``, if given, runs before
+        each."""
         for _ in range(n):
+            if exchange is not None:
+                exchange(self.state)
             self.state = self.advance()
 
 
@@ -347,9 +355,12 @@ class CapturedStep:
     ``launches`` are the kernel launches of one replay, which ``run`` adds
     to the wrappers' counts.  ``key`` is what the capture depends on
     beyond its ``Block`` (see ``run_steps``); ``tables`` are kept so that
-    their identity in the key stays theirs."""
+    their identity in the key stays theirs.  ``ms``: the host time of the
+    warm-up and the capture (the graph's capture starts with a device
+    synchronize, so the warm-up is in it)."""
 
     def __init__(self, loop: StepLoop, state0: KidState, key, tables):
+        t0 = time.perf_counter()
         dev = loop.m_buf.device
         self.loop, self.key, self.tables = loop, key, tables
         cuda_build.build()
@@ -362,14 +373,18 @@ class CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.launches = cuda_build.take_launches(loop.step_in_place)
+        self.ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, state0: KidState):
         for buf, t in zip(self.loop.state, state0):
             buf.copy_(t)
 
-    def run(self, n: int):
-        """``n`` steps: ``n`` replays on the current stream."""
+    def run(self, n: int, exchange=None):
+        """``n`` steps: ``n`` replays on the current stream, each after
+        ``exchange(state)`` if given (on the host, between two replays)."""
         for _ in range(n):
+            if exchange is not None:
+                exchange(self.loop.state)
             self.graph.replay()
         cuda_build.add_launches(self.launches, n)
 
@@ -377,11 +392,15 @@ class CapturedStep:
 class Block:
     """A block of a case's columns on a device, as ``BLOCKS`` keeps it: its
     ``Flow``, built once, as the reference's ``jit`` builds it once per
-    compile, and the step last captured on it (``captured``), if any."""
+    compile, the step last captured on it (``captured``), if any, and, for
+    a rank's block of a 2-D case, its ghost columns (``halo``, a
+    ``dist.mesh.Halo``, made on its first sharded call), whose buffers
+    that capture reads."""
 
     def __init__(self, flow: Flow):
         self.flow = flow
         self.captured: Optional[CapturedStep] = None
+        self.halo = None
 
     def capture(self, key, build) -> CapturedStep:
         """The captured step for ``key``: the kept one if its key is
@@ -444,15 +463,23 @@ def simulate(state0: KidState, tables, case: Case, n_steps: int,
 
 def run_steps(state0: KidState, tables, case: Case, n_steps: int,
               profile_diags, istep0: int, device, block: Block, pad_x,
-              graphs: bool = True):
+              graphs: bool = True, exchange=None):
     """The time loop of ``simulate`` over the columns that ``state0``
     holds, which may be a block of the case's columns: ``block`` holds
     those columns' flow (see ``BLOCKS``), and ``pad_x`` fills their ghost
-    columns (see ``make_step``).  With ``graphs`` on a CUDA device the
-    step is captured on ``block`` once per (profile names, fused-driver
-    switch, ``tables``, ``pad_x``) and replayed; ``pad_x`` must then need
-    no host work (the sharded path's exchange does: it passes
-    ``graphs=False``)."""
+    columns (see ``make_step``) with no host work.  With ``graphs`` on a
+    CUDA device the step is captured on ``block`` once per (profile names,
+    fused-driver switch, ``tables``, ``pad_x``) and replayed; ``pad_x``
+    must be the same object, or an equal one, in every call on a block
+    (``wrap_x``, or the block's ``Halo.pad_x``), or each call captures
+    again.
+
+    ``exchange(state)``, if given, fills the ghost buffers that ``pad_x``
+    reads from the loop's current state, on the host and outside the
+    step (a sharded run's halo exchange): once for ``state0`` before
+    anything else, so that a capture's warm-up reads filled ghosts and no
+    collective runs inside the warm-up or the capture, then before every
+    later step; one call a step in all (one for a call of no steps)."""
     dev = resolve_device(device)
     for t in state0:
         check_on(t, dev)
@@ -463,6 +490,8 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
         raise ValueError(f"flow rows {tuple(fl.w_pat.shape)} do not fit "
                          f"the state's {shape}")
     names = resolve_profile_names(profile_diags)
+    if exchange is not None:
+        exchange(state0)                  # the first step's halo
 
     def new_loop():
         step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
@@ -486,7 +515,11 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
     for i0 in range(0, n_steps, CHUNK_STEPS):
         k = min(CHUNK_STEPS, n_steps - i0)
         loop.start_chunk(case.modulation_table(istep0 + i0, k, dtype))
-        run(k)
+        if i0 == 0 and exchange is not None:
+            run(1)                        # its halo was exchanged above
+            run(k - 1, exchange)
+        else:
+            run(k, exchange)
         ppt[i0:i0 + k] = loop.ppt[:k]
         for n, out in profiles.items():
             out[i0:i0 + k] = loop.profiles[n][:k]

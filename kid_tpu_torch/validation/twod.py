@@ -68,8 +68,9 @@ def run_2d(case, dtype=torch.float32, device="cuda", n_steps=None) -> dict:
 def run_2d_sharded(case, n_ranks: int, dtype=torch.float32, device="cuda",
                    n_steps=None) -> dict:
     """``run_2d`` on ``n_ranks`` ranks (``dist.launch.default_layout``
-    on ``device``'s kind); ``launches`` adds up every rank's, and
-    ``ranks`` holds each rank's numbers."""
+    on ``device``'s kind; on a card each rank replays a CUDA graph of its
+    step); ``launches`` adds up every rank's, and ``ranks`` holds each
+    rank's numbers."""
     n = case.n_steps if n_steps is None else n_steps
     devices, backend = launch.default_layout(n_ranks, device)
     r = launch.run_sharded(case, n_ranks, n, dtype, devices, backend,

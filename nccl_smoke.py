@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""The sharded loop across cards: NCCL ranks, one card each, against one
+process.
+
+    python3 nccl_smoke.py
+
+Needs two or more CUDA cards (the 4-rank runs need four) and imports the
+port (``kid_tpu_torch``) only.  cumulus2d at its 64 x 60 (300 steps) and
+the flagship, cumulus2d at 131072 x 60 (20 steps), each after 20 warm-up
+steps, in float32: once on one rank (cuda:0, gloo) and then on 2 and 4
+NCCL ranks (``dist.launch.default_layout``), each rank graphed (its step
+replayed as a CUDA graph, the halo exchanged between two replays) and
+eager.  Every sharded run must equal the single process bit for bit (the
+final fields and the four precip series), with one halo exchange and one
+``fused_step`` launch a step on every rank.  Prints the cards' names and
+power limits, then one JSON line per run with each rank's ms/step (host
+clock, its own window), exchange share, capture ms and peak device
+memory; exits 1 on a mismatch, 2 with fewer than two cards.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from kid_tpu_torch.dist import launch  # noqa: E402
+from kid_tpu_torch.driver.cases import CUMULUS2D  # noqa: E402
+
+FLAGSHIP = dataclasses.replace(CUMULUS2D, nx=131072, cell_nx=CUMULUS2D.nx)
+# (case, steps timed, warm-up steps)
+RUNS = ((CUMULUS2D, 300, 20), (FLAGSHIP, 20, 20))
+
+
+def faults(one, run, n) -> list:
+    """What keeps ``run`` from being the single process's bits, with one
+    exchange and one ``fused_step`` launch a step on every rank."""
+    bad = [k for k in one.fields if not np.array_equal(one.fields[k],
+                                                       run.fields[k])]
+    bad += [k for k in one.ppt if not np.array_equal(one.ppt[k],
+                                                     run.ppt[k])]
+    bad += [f"rank {r['rank']}: {r['exchange_calls']} exchanges, launches "
+            f"{r['launches']}" for r in run.ranks
+            if r["exchange_calls"] != n or r["launches"] != {
+                k: n if k == "fused_step" else 0 for k in r["launches"]}]
+    return bad
+
+
+def numbers(ranks) -> list:
+    return [{"device": r["device"], "ms_per_step": r["ms_per_step"],
+             "exchange_share": r["exchange_share"],
+             "capture_ms": r["capture_ms"],
+             "peak_gib": r["peak_bytes"] / 2**30} for r in ranks]
+
+
+def main() -> int:
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        print(f"nccl_smoke: {cards} CUDA cards; NCCL ranks need two or more",
+              file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    failed = False
+    for case, n, warm in RUNS:
+        one = launch.run_sharded(case, 1, n, torch.float32, ["cuda:0"],
+                                 "gloo", warmup_steps=warm)
+        print(json.dumps({"nx": case.nx, "steps": n, "ranks": 1,
+                          "backend": "gloo", "graphs": True,
+                          "ranks_numbers": numbers(one.ranks)}), flush=True)
+        for k in (2, 4):
+            if k > cards:
+                continue
+            devices, backend = launch.default_layout(k)
+            for graphs in (True, False):
+                run = launch.run_sharded(case, k, n, torch.float32, devices,
+                                         backend, warmup_steps=warm,
+                                         graphs=graphs)
+                bad = faults(one, run, n)
+                failed |= bool(bad)
+                print(json.dumps({"nx": case.nx, "steps": n, "ranks": k,
+                                  "backend": backend, "graphs": graphs,
+                                  "bitwise_equal_to_one_process": not bad,
+                                  "faults": bad,
+                                  "ranks_numbers": numbers(run.ranks)}),
+                      flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,13 +10,18 @@ orographic2d 16 x 24, 5 steps; float64), bit for bit, and against the JAX
 package's ``simulate`` at the ``test_torch_solver.assert_equiv`` model
 (precip rtol 1e-8); a widened 1-D case gets no x flux; one rank equals
 ``simulate`` and two ranks (``run_sharded``, the counterpart of
-``tests/test_multiproc.py``); a CUDA request without a card raises.
+``tests/test_multiproc.py``); a CUDA request without a card raises.  The
+split loop (the halo exchanged on the host into ghost buffers before each
+step) on 2 and 4 ranks, graphed through a stand-in capture and eager,
+equals ``simulate`` bit for bit in the final state and every stream,
+across a chunk boundary from step 150.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import tempfile
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +32,7 @@ from kid_tpu_torch.dist import launch as L
 from kid_tpu_torch.dist import mesh as M
 from kid_tpu_torch.driver import advection as tadv
 from kid_tpu_torch.driver import cases as tcases
+from kid_tpu_torch.driver import loop as tloop
 from kid_tpu_torch.driver.loop import KidState, run_case
 
 torch.set_num_threads(2)
@@ -35,6 +41,11 @@ PPT = ("ppt_rain", "ppt_snow", "ppt_graupel", "ppt_ice")
 # the sizes of tests/test_dist.py
 SHARDED = {"cumulus2d": (32, 24, 15), "orographic2d": (16, 24, 5)}
 N_RANKS = 4
+# the split loop's runs: from a seeded state at step 150, across a chunk
+# boundary
+SPLIT_STEPS, SPLIT_ISTEP0 = tloop.CHUNK_STEPS + 3, 150
+# a rank whose peer is gone gives up after this, not after M.TIMEOUT
+TEST_TIMEOUT = timedelta(seconds=120)
 
 
 def _seeded(shape, seed=0):
@@ -57,6 +68,7 @@ def _spawn(worker, n, *args):
 
 
 def _halo_worker(rank, n, init, out, nx, nz):
+    M.TIMEOUT = TEST_TIMEOUT
     group = M.make_group("cpu", "gloo", init, rank, n)
     try:
         lo, hi = M.column_block(nx, rank, n)
@@ -86,6 +98,7 @@ def test_halo_exchange_is_the_periodic_wrap(n):
 
 
 def _tendency_worker(rank, n, init, out, name):
+    M.TIMEOUT = TEST_TIMEOUT
     group = M.make_group("cpu", "gloo", init, rank, n)
     try:
         case, q, u_face, rho0 = _flow(name)
@@ -167,6 +180,62 @@ def test_simulate_sharded_matches_jax_simulate(name):
     for k in PPT:
         np.testing.assert_allclose(sharded.ppt[k], np.asarray(getattr(wout, k)),
                                    rtol=1e-8, atol=1e-20, err_msg=k)
+
+
+def _split_worker(rank, n, init, out, name):
+    """``simulate_sharded`` on this rank's block of the seeded state,
+    through the graphed loop (the stand-in capture of the cache tests,
+    which replays eagerly) and then the eager loop, every stream."""
+    from test_torch_graph_loop import EagerCapture, _seeded, _tables
+    M.TIMEOUT = TEST_TIMEOUT
+    tloop.GRAPH_DEVICE_TYPES = ("cuda", "cpu")
+    tloop.CapturedStep = EagerCapture
+    group = M.make_group("cpu", "gloo", init, rank, n)
+    try:
+        case = _sized(name)
+        tables = _tables(case)
+        local = M.shard_state(_seeded(case), rank, n)
+        saved = {}
+        for mode, graphs in (("graphed", True), ("eager", False)):
+            M.halo_exchange_x.calls = 0
+            final, streams = M.simulate_sharded(
+                local, tables, case, SPLIT_STEPS, group, True, SPLIT_ISTEP0,
+                "cpu", graphs)
+            saved.update({f"{mode}/{f}": getattr(final, f)
+                          for f in KidState._fields})
+            saved.update({f"{mode}/{k}": getattr(streams, k) for k in PPT})
+            saved.update({f"{mode}/profile/{k}": v
+                          for k, v in streams.profiles.items()})
+            saved[f"{mode}/calls"] = np.array(M.halo_exchange_x.calls)
+        saved["captures"] = np.array(len(EagerCapture.built))
+        np.savez(Path(out) / f"{rank}.npz", **saved)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_split_sharded_loop_equals_simulate_bitwise(name, n):
+    from test_torch_graph_loop import _seeded, _tables
+    case = _sized(name)
+    final, streams = tloop.simulate(_seeded(case), _tables(case), case,
+                                    SPLIT_STEPS, True, SPLIT_ISTEP0,
+                                    device="cpu")
+    want = {**{f: getattr(final, f) for f in KidState._fields},
+            **{k: getattr(streams, k) for k in PPT},
+            **{f"profile/{k}": v for k, v in streams.profiles.items()}}
+    assert len(want) == 12 + 4 + len(tloop.ALL_PROFILE_NAMES)
+    got = _spawn(_split_worker, n, name)
+    for mode in ("graphed", "eager"):
+        for k, v in want.items():
+            axis = 0 if k in KidState._fields else 1   # the column axis
+            np.testing.assert_array_equal(
+                np.concatenate([g[f"{mode}/{k}"] for g in got], axis),
+                v.numpy(), err_msg=f"{mode} {k}")
+        # one exchange a step on every rank
+        assert [int(g[f"{mode}/calls"]) for g in got] == [SPLIT_STEPS] * n
+    assert [int(g["captures"]) for g in got] == [1] * n
+    assert float(streams.ppt_rain.abs().sum()) > 0.0
 
 
 def test_widened_1d_case_has_no_x_flux():

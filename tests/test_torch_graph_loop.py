@@ -13,14 +13,19 @@ the streams into chunk buffers (``driver/loop.py::StepLoop``).  Here:
     shape-correct stubs on the meta device, makes no host sync and no
     copy between host and device (the part of a capture that can be
     checked without a card), after the warm-up step the loop runs before
-    capturing;
+    capturing; so does a sharded rank's step, whose ghost columns come
+    from its ``Halo``;
   * the cache of column blocks, with a stand-in capture that replays
     eagerly: a block's capture keys on dtype, tables, profile names and
     the fused switch and is reused otherwise; the cache is bounded; a
     replay adds the captured launches; the caller gets tensors of its own;
     a failed capture raises; a second call builds no flow pattern; the
-    eager loop copies no state back; the sharded path asks for the eager
-    loop.
+    eager loop copies no state back; the sharded path asks for the graphed
+    loop and runs eagerly on the CPU;
+  * the sharded loop on one rank: the halo exchange runs once a step and
+    never inside the step, graphed and eager, and the result is
+    ``simulate``'s; a second call on the same block captures nothing
+    new.
 """
 from __future__ import annotations
 
@@ -251,20 +256,26 @@ def _stub_kernels(monkeypatch, calls):
     monkeypatch.setattr(FK, "fused_kid_step", fused_kid_step)
 
 
-@pytest.mark.parametrize("name", list(PATHS))
+@pytest.mark.parametrize("name", list(PATHS) + ["sharded"])
 def test_step_makes_no_host_sync(name, monkeypatch):
-    case = _path(name, monkeypatch)
+    # "sharded": rank 0's block of cumulus2d on 2 ranks, its ghost columns
+    # read from a Halo
+    sharded = name == "sharded"
+    case = _path("cumulus2d" if sharded else name, monkeypatch)
     calls = []
     _stub_kernels(monkeypatch, calls)
     dev, dtype = torch.device("meta"), torch.float32
     tables = S.DeviceTables(*[t.to(dev) for t in _tables(case, dtype)])
     names = L.ALL_PROFILE_NAMES
-    fl = L.build_flow(case, dtype, dev)
+    lo, hi = M.column_block(case.nx, 0, 2) if sharded else (0, case.nx)
+    pad_x = M.Halo(case, dtype, dev).pad_x if sharded else L.wrap_x
+    fl = L.build_flow(case, dtype, dev, lo, hi)
     step = L.make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
-                       fl.pres2, L.wrap_x, names)
-    shape = (case.nx, case.nz)
+                       fl.pres2, pad_x, names)
+    shape = (hi - lo, case.nz)
     loop = L.StepLoop(step, shape, dtype, dev, names)
-    loop.state = L.initial_state(case, dtype, dev)
+    loop.state = KidState(*[t[lo:hi]
+                            for t in L.initial_state(case, dtype, dev)])
     loop.start_chunk(case.modulation_table(ISTEP0, L.CHUNK_STEPS, dtype))
     loop.advance()                # the warm-up step, as before a capture
     n_warm = len(calls)
@@ -272,7 +283,8 @@ def test_step_makes_no_host_sync(name, monkeypatch):
         loop.step_in_place()      # what the capture records
     want = {"mixed1": ["fused_step"], "warm1_recon": ["fused_step"],
             "cumulus2d": ["fused_step"], "fused": ["fused_kid_step"],
-            "aerosol1d": ["fused_rates", "fused_post"]}[name]
+            "aerosol1d": ["fused_rates", "fused_post"],
+            "sharded": ["fused_step"]}[name]
     assert calls[n_warm:] == want
     assert loop.profiles["prr_wau"].shape == (L.CHUNK_STEPS,) + shape
 
@@ -446,27 +458,111 @@ def test_eager_loop_copies_no_state_back(monkeypatch):
     assert not torch.equal(final.qr, st0.qr)
 
 
-def test_sharded_path_takes_the_eager_loop(monkeypatch):
-    seen = {}
+def _world(monkeypatch, n=1, rank=0):
+    """``torch.distributed`` as seen by ``dist.mesh``: ``rank`` of ``n``,
+    with no process group (on one rank the exchange is the local wrap)."""
+    monkeypatch.setattr(M.dist, "get_world_size", lambda group: n)
+    monkeypatch.setattr(M.dist, "get_rank", lambda group: rank)
 
-    def run_steps(*args, **kwargs):
-        seen.update(kwargs, block=args[7])
+
+def test_sharded_path_takes_the_eager_loop(monkeypatch):
+    # it asks for the graphed loop unless told otherwise, with the block's
+    # ghost columns; on the CPU the loop runs eagerly
+    seen = []
+
+    def run_steps(*args):
+        seen.append(args)
         return "ran"
 
-    monkeypatch.setattr(M, "run_steps", run_steps)
-    monkeypatch.setattr(M.dist, "get_world_size", lambda group: 2)
-    monkeypatch.setattr(M.dist, "get_rank", lambda group: 1)
-    case = tcases.CUMULUS2D
-    st = L.initial_state(case, torch.float64, "cpu")
-    local = M.shard_state(st, 1, 2)
-    assert M.simulate_sharded(local, None, case, 3, None,
-                              device="cpu") == "ran"
-    assert seen["graphs"] is False
-    block, grid = seen["block"].flow, case.grid()
-    np.testing.assert_array_equal(block.w_pat.numpy(),
+    with monkeypatch.context() as m:
+        m.setattr(M, "run_steps", run_steps)
+        _world(m, 2, 1)
+        case = tcases.CUMULUS2D
+        local = M.shard_state(L.initial_state(case, torch.float64, "cpu"),
+                              1, 2)
+        for kwargs in ({}, {"graphs": False}):
+            assert M.simulate_sharded(local, None, case, 3, None,
+                                      device="cpu", **kwargs) == "ran"
+    (*_, block, pad_x, graphs, exchange), second = seen
+    assert graphs is True and second[9] is False
+    assert pad_x == block.halo.pad_x == second[8]
+    assert exchange.func == block.halo.exchange
+    grid = case.grid()
+    np.testing.assert_array_equal(block.flow.w_pat.numpy(),
                                   case.rhow_pattern(grid)[32:64])
-    np.testing.assert_array_equal(block.u_pat.numpy(),
+    np.testing.assert_array_equal(block.flow.u_pat.numpy(),
                                   case.rhou_pattern(grid)[32:65])
+
+    def fail(*args):
+        raise AssertionError("the CPU captured a step")
+
+    monkeypatch.setattr(L, "CapturedStep", fail)
+    _world(monkeypatch)
+    case, tables, st0 = _small("cumulus2d")
+    M.simulate_sharded(st0, tables, case, 2, None, device="cpu")
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_sharded_exchange_once_a_step_outside_the_step(graphs, eager_graphs,
+                                                       monkeypatch):
+    _world(monkeypatch)
+    inside, states = [], []
+    advance, exchange = L.StepLoop.advance, M.Halo.exchange
+
+    def watched_advance(self):
+        inside.append(self)
+        try:
+            return advance(self)
+        finally:
+            inside.pop()
+
+    def watched_exchange(self, state, group):
+        assert not inside, "the halo exchange ran inside the step"
+        states.append(state)
+        return exchange(self, state, group)
+
+    monkeypatch.setattr(L.StepLoop, "advance", watched_advance)
+    monkeypatch.setattr(M.Halo, "exchange", watched_exchange)
+    case = dataclasses.replace(tcases.CUMULUS2D, nx=16)
+    tables, st0 = _tables(case), _seeded(case)
+    M.halo_exchange_x.calls = 0
+    got = M.simulate_sharded(st0, tables, case, N_STEPS, None, NAMES, ISTEP0,
+                             device="cpu", graphs=graphs)
+    assert len(states) == M.halo_exchange_x.calls == N_STEPS
+    assert len(eager_graphs) == (1 if graphs else 0)
+    # the first exchange reads the caller's state; graphed, every later one
+    # the captured step's own state buffers
+    assert states[0] is st0
+    if graphs:
+        loop = L.BLOCKS.get(case, torch.float64, st0.qv.device, 0,
+                            case.nx).captured.loop
+        assert all(st is loop.state for st in states[1:])
+    want = L.simulate(st0, tables, case, N_STEPS, NAMES, ISTEP0,
+                      device="cpu", graphs=False)
+    _assert_same(got, want[0], torch.stack(
+        [getattr(want[1], k) for k in PPT], 1), want[1].profiles)
+
+
+def test_second_sharded_call_captures_nothing_new(eager_graphs, monkeypatch):
+    _world(monkeypatch)
+    case = dataclasses.replace(tcases.CUMULUS2D, nx=16)
+    tables, st0 = _tables(case), _seeded(case)
+    n1, n2 = 5, L.CHUNK_STEPS
+    st1, out1 = M.simulate_sharded(st0, tables, case, n1, None, NAMES,
+                                   ISTEP0, device="cpu")
+    block = L.BLOCKS.get(case, torch.float64, st0.qv.device, 0, case.nx)
+    first = block.captured
+    st2, out2 = M.simulate_sharded(st1, tables, case, n2, None, NAMES,
+                                   ISTEP0 + n1, device="cpu")
+    assert len(eager_graphs) == 1 and block.captured is first
+    assert len(L.BLOCKS) == 1
+    # the two calls are one call of n1 + n2 steps
+    want = L.simulate(st0, tables, case, n1 + n2, NAMES, ISTEP0,
+                      device="cpu", graphs=False)
+    cat = torch.cat([torch.stack([getattr(o, k) for k in PPT], 1)
+                     for o in (out1, out2)])
+    _assert_same((st2, want[1]), want[0], cat, {
+        k: torch.cat([out1.profiles[k], out2.profiles[k]]) for k in NAMES})
 
 
 def test_take_and_add_launches():

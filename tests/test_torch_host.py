@@ -159,6 +159,31 @@ def test_chip_smoke_imports_neither_jax_nor_reference_package():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
 
 
+def test_nccl_smoke_imports_neither_jax_nor_reference_package(monkeypatch):
+    for mod in _imports(PKG.parent / "nccl_smoke.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
+    import nccl_smoke as N
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert N.main() == 2                   # NCCL ranks need two cards
+
+
+def test_nccl_smoke_names_every_fault():
+    import nccl_smoke as N
+
+    def run(theta, rain, calls, launches):
+        return SimpleNamespace(
+            fields={"theta": np.array([theta])},
+            ppt={"ppt_rain": np.array([rain])},
+            ranks=[{"rank": 0, "exchange_calls": calls,
+                    "launches": {"fused_step": launches, "fused_post": 0}}])
+
+    one = run(1.0, 2.0, 3, 3)
+    assert N.faults(one, run(1.0, 2.0, 3, 3), 3) == []
+    bad = N.faults(one, run(1.5, 2.5, 2, 3), 3)
+    assert bad[:2] == ["theta", "ppt_rain"] and "2 exchanges" in bad[2]
+    assert len(N.faults(one, run(1.0, 2.0, 3, 4), 3)) == 1
+
+
 def test_kernel_budget_imports_neither_jax_nor_reference_package():
     mods = list(_imports(PKG.parent / "kernel_budget.py"))
     assert "chip_smoke" in mods
