@@ -65,12 +65,18 @@ on failure:
      finals in ``validation_finals/`` with the budgets of the reference's
      f32 validation, and ``fused_step`` timed on the path's last input;
   5b. ``mp_driver_3d`` on a WRF-shaped (i, k, j) = (128, 120, 64) tile of
-     mixed1's sounding with phase 4's seeded layers: one ``fused_step``
-     launch a call, the result equal to ``batched_microphysics`` on the
-     same columns reshaped by hand, the accumulators and the vapor
-     repair, ms per call and the layout moves' share of it, then the
-     effective radii and ``refl_10cm`` on its output inside their
-     windows;
+     mixed1's sounding with phase 4's seeded layers, graphed (the
+     default: a CUDA graph of the whole call) and eager, with and without
+     the radii: the same bits in every field, accumulator and radius, one
+     ``fused_step`` launch a call both ways, ms (events) and device ms
+     (profiler) a call of each; the result equal to
+     ``batched_microphysics`` on the same columns reshaped by hand, the
+     accumulators and the vapor repair, ms per call and the layout moves'
+     share of it, then the effective radii and ``refl_10cm`` on its
+     output inside their windows; then ``batched_microphysics`` on a
+     seeded (8192, 120) f32 batch, graphed and eager (mixed with rate
+     profiles on and off, aerosol-aware): the same bits and launches, ms
+     and device ms a call;
   6a. distribution: cumulus2d at its 64 x 60 for all 900 steps in float32
      in one process and on 2 ranks of the card (``dist.launch``, gloo,
      halo slabs staged through the host, each rank replaying a CUDA graph
@@ -88,7 +94,8 @@ on failure:
      ``validation.cases``, against the oracle's float64 finals in
      ``validation_finals/`` with the reference's fixed budgets, the
      perturbed (chaos) member for mixed1, deep1 and aerosol1d;
-  8. one run of ``python -m kid_tpu_torch.bench``, its JSON line printed;
+  8. one run of ``python -m kid_tpu_torch.bench``, its JSON line printed,
+     then its solver-batch rates, graphed and eager;
   9. the compiled loop against the eager one: mixed1, aerosol1d and the
      fused driver at (8192, 120), 20 steps from a seeded state at step
      150, cumulus2d and orographic2d at (64, 60) for 900 steps, and the
@@ -101,13 +108,26 @@ on failure:
      two streams) on 2 ranks of the card, eager and graphed: the same bits
      in the final state and every stream, one exchange and one
      ``fused_step`` launch a step on each rank, and each rank's ms/step,
-     exchange share, capture ms and peak device memory in both modes.
+     exchange share, capture ms and peak device memory in both modes;
+     aerosol1d's eager loop is profiled in two windows, the kernels a
+     step of the two compared by name, and the ops two more eager calls
+     dispatch must be the same;
+ 10. the oracle: the float64 kernel path on the card against the port's
+     oracle twin (the NumPy transliteration of ``mp_thompson``) on the
+     host: mixed1 and aerosol1d for 100 steps through graphed
+     ``simulate`` (``fused_step``; ``fused_rates`` and ``fused_post``)
+     within ``RTOL`` 1e-4 on the target fields and the cumulative rain
+     and 1e-3 on nc, nwfa and nifa; cumulus2d and orographic2d at 16
+     columns for 50 steps through ``validation.twod.twin_equivalence``,
+     closures matched; each entry's worst field and seconds.
 
-Phases 3-3c, 4 (its kernel path), 5, 6, 7 and 8 run ``simulate``'s and
-``simulate_sharded``'s default: a CUDA graph of the step, captured once
-per case, column block, dtype, tables and streams and replayed once a
-step (a rank exchanges its halo on the host between two replays).  The
-plain runs of phase 4 run the eager loop.
+Phases 3-3c, 4 (its kernel path), 5, 6, 7, 8 and 10 run ``simulate``'s
+and ``simulate_sharded``'s default: a CUDA graph of the step, captured
+once per case, column block, dtype, tables and streams and replayed once
+a step (a rank exchanges its halo on the host between two replays).  The
+plain runs of phase 4 run the eager loop.  ``batched_microphysics`` and
+``mp_driver_3d`` called on their own replay a CUDA graph of the call
+(``kid_tpu_torch/micro/graphs.py``), dropped after phases 5b and 8.
 
 Phases 2, 2b, 2c and 2d print a SHA-256 digest (first 16 hex digits) of
 each kernel's outputs on each batch, and a combined digest per kernel
@@ -126,8 +146,11 @@ kernel, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -181,9 +204,20 @@ GRAPH_CELLS = {
 GRAPH_RANK_CELLS = {"cumulus2d": (900, 0, True, 20),
                     "flagship": (20, 150, ("prr_wau", "dqr_mphys"), 20)}
 N_PROFILED = 5         # steps under the profiler
+# phase 9: cells whose eager loop is profiled in two windows, their
+# kernels a step compared (ROADMAP Queue 3 (b))
+TWO_WINDOWS = ("aerosol1d",)
 # phase 7: the cases that also run the perturbed (chaos) member, those
 # of the reference's chaos envelope (VALIDATION_r05.json)
 CHAOS_CASES = ("mixed1", "deep1", "aerosol1d")
+# phase 5b: batched_microphysics cells -> (aerosol-aware, rate profiles,
+# the kernels of a call)
+BATCHED_CELLS = {"mixed": (False, False, ("fused_step",)),
+                 "mixed, rates": (False, True, ("fused_step",)),
+                 "aerosol": (True, False, ("fused_rates", "fused_post"))}
+# phase 10: steps of the 1-D cases; (columns, steps) of the 2-D cases
+ORACLE_STEPS = 100
+ORACLE_2D = (16, 50)
 
 
 def card_line() -> str:
@@ -1261,12 +1295,64 @@ def wrf_tile(dev, dtype=torch.float32):
     return args, case.dt, acc, case.micro
 
 
+def same_outputs(label, got, want):
+    """Raise unless two nested outputs (tensors, None, dicts, tuples) hold
+    the same bits; returns the number of tensors compared."""
+    if isinstance(want, torch.Tensor):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: graphed and eager differ")
+        return 1
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: outputs differ")
+        return sum(same_outputs(f"{label} {k}", got[k], want[k])
+                   for k in want)
+    if isinstance(want, tuple):
+        names = getattr(want, "_fields", range(len(want)))
+        return sum(same_outputs(f"{label} {k}", a, b)
+                   for k, a, b in zip(names, got, want))
+    if got is not None or want is not None:
+        raise AssertionError(f"{label}: outputs differ")
+    return 0
+
+
+def graphed_and_eager(label, call, reps=20):
+    """``call(graphs)`` (one call of an entry point) graphed and eager in
+    turn: the same bits and the same launches a call, each mode's ms a
+    call (events around ``reps`` calls, after a first call that captures)
+    and device ms a call (profiler, 5 calls).  Returns ({mode: launch
+    counts of one call}, {mode: (ms, device ms, kernels a call)})."""
+    out, counts, times = {}, {}, {}
+    for mode, graphs in (("eager", False), ("graphed", True)):
+        call(graphs)                    # the capture (graphed)
+        torch.cuda.synchronize()
+        reset_counts()
+        out[mode] = call(graphs)
+        torch.cuda.synchronize()
+        counts[mode] = read_counts()
+        ms = time_ms(lambda: call(graphs), reps)
+        rows, _ = device_profile(lambda: [call(graphs) for _ in range(5)], 5)
+        times[mode] = (ms, sum(r[1] for r in rows), sum(r[2] for r in rows))
+    if counts["graphed"] != counts["eager"]:
+        raise AssertionError(f"{label}: launches {counts}")
+    n = same_outputs(label, out["graphed"], out["eager"])
+    return counts, times, n, out["graphed"]
+
+
+def times_line(times) -> str:
+    return "; ".join(f"{mode} {ms:.3f} ms/call (events), device {dms:.3f} "
+                     f"ms/call in {k:.0f} kernels" for mode, (ms, dms, k)
+                     in times.items())
+
+
 def phase_wrf(dev, card):
-    """``mp_driver_3d`` on a WRF-shaped tile: one ``fused_step`` launch a
-    call, the result against ``batched_microphysics`` on the same columns
-    reshaped by hand, the accumulators, the vapor repair, ms per call and
-    the layout moves' share, then the moment diagnostics on its output.
-    Returns the launches of one call."""
+    """``mp_driver_3d`` on a WRF-shaped tile, graphed and eager in turn:
+    the same bits in every field, accumulator and radius, one
+    ``fused_step`` launch a call both ways, ms and device ms a call; the
+    result against ``batched_microphysics`` on the same columns reshaped
+    by hand, the accumulators, the vapor repair, the layout moves' share,
+    then the moment diagnostics on its output.  Returns the launches of
+    one call."""
     from kid_tpu_torch.diag.moments import refl_10cm
     from kid_tpu_torch.driver import wrf_adapter as W
     from kid_tpu_torch.micro import ColumnState, batched_microphysics
@@ -1276,16 +1362,22 @@ def phase_wrf(dev, card):
     tables = device_tables(get_tables(iiwarm=cfg.iiwarm), torch.float32,
                            dev)
 
-    def call(eff=False):
+    def call(eff=False, graphs=True):
         return W.mp_driver_3d(*args, dt, *acc, tables, cfg,
-                              want_eff_rad=eff, device=dev)
+                              want_eff_rad=eff, device=dev, graphs=graphs)
 
-    reset_counts()
-    fields, precip, _ = call()
-    torch.cuda.synchronize()
-    counts = read_counts()
-    if counts != {k: int(k == "fused_step") for k in counts}:
-        raise AssertionError(f"mp_driver_3d: launches {counts}")
+    for eff in (False, True):
+        counts, times, n, (fields, precip, _) = graphed_and_eager(
+            "mp_driver_3d", lambda graphs, eff=eff: call(eff, graphs))
+        if counts["graphed"] != {k: int(k == "fused_step") for k in counts[
+                "graphed"]}:
+            raise AssertionError(f"mp_driver_3d: launches {counts}")
+        print(f"mp_driver_3d{' with radii' if eff else ''} graphed and "
+              f"eager on a {WRF_TILE} f32 tile: the same bits in {n} "
+              f"outputs, 1 fused_step launch a call both ways; "
+              f"{times_line(times)}; wall "
+              f"{times['eager'][0] / times['graphed'][0]:.2f}x [{card}]",
+              flush=True)
 
     # by hand: (i, k, j) -> (i*j, k) columns, the column solver, back
     qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz = args
@@ -1340,7 +1432,7 @@ def phase_wrf(dev, card):
     out_ms = time_ms(lambda: [W._cols_to_ikj(cols(a), ni_, nj)
                               for a in outs], 20)
     print(f"mp_driver_3d on an (i, k, j) = {tuple(qv.shape)} f32 tile "
-          f"(mixed phase, {ni_ * nj} columns): {ms:.3f} ms/call, 1 "
+          f"(mixed phase, {ni_ * nj} columns), graphed: {ms:.3f} ms/call, 1 "
           f"fused_step launch a call; layout moves (i,k,j) -> columns "
           f"{in_ms:.3f} ms, columns -> (i,k,j) {out_ms:.3f} ms, "
           f"{(in_ms + out_ms) / ms:.3f} of the call; equal to the columns "
@@ -1370,7 +1462,59 @@ def phase_wrf(dev, card):
           + f"; refl_10cm {float(dbz.min()):.1f} to {float(dbz.max()):.1f} "
           f"dBZ, {float((dbz > 0).double().mean()):.3f} of cells above 0",
           flush=True)
-    return counts
+    release_graphs()
+    return counts["graphed"]
+
+
+def phase_batched(dev, card):
+    """``batched_microphysics`` on a seeded (MAIN_NX, 120) f32 batch,
+    ``pres`` broadcast from one row as the bench passes it, graphed and
+    eager in turn for each cell of BATCHED_CELLS: the same bits and the
+    same launches, ms and device ms a call.  Returns {path: launches of
+    one graphed call}."""
+    from kid_tpu_torch.config import MicroConfig
+    from kid_tpu_torch.micro import batched_microphysics
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    dtype = torch.float32
+    st, pres, dzq = make_batch(MAIN_NX, 120, 5, dtype, dev)
+    pres = pres[:1].expand_as(pres)
+    w = seeded_w(MAIN_NX, 120, 5, dtype, dev)
+    tables = device_tables(get_tables(iiwarm=False), dtype, dev)
+    paths = {}
+    for label, (aerosol, rates, kernels) in BATCHED_CELLS.items():
+        cfg = MicroConfig(iiwarm=False, is_aerosol_aware=aerosol)
+
+        def call(graphs):
+            return batched_microphysics(st, pres, w, dzq, 10.0, tables, cfg,
+                                        want_rates=rates, device=dev,
+                                        graphs=graphs)
+
+        counts, times, n, out = graphed_and_eager(
+            f"batched_microphysics {label}", call)
+        if counts["graphed"] != {k: int(k in kernels)
+                                 for k in counts["graphed"]}:
+            raise AssertionError(f"batched {label}: launches {counts}")
+        check_finite_nonnegative(f"batched {label}", out[0]._asdict())
+        print(f"batched_microphysics {label} ({MAIN_NX}, 120) f32 graphed "
+              f"and eager: the same bits in {n} outputs, launches a call "
+              f"{ {k: v for k, v in counts['graphed'].items() if v} } both "
+              f"ways; {times_line(times)}; column-steps/s graphed "
+              f"{MAIN_NX * 1e3 / times['graphed'][0]:.0f}, eager "
+              f"{MAIN_NX * 1e3 / times['eager'][0]:.0f} [{card}]",
+              flush=True)
+        paths[f"batched_graphed_{label.replace(', ', '_')}"] = \
+            counts["graphed"]
+    release_graphs()
+    return paths
+
+
+def release_graphs():
+    """Drop the captured entry-point calls and their memory, so that a
+    later phase's peak device memory does not hold them."""
+    from kid_tpu_torch.micro import graphs
+    graphs.GRAPHS.clear()
+    torch.cuda.empty_cache()
 
 
 def check_ranks(label, ranks, n, graphed):
@@ -1687,6 +1831,9 @@ def phase_graphs_vs_eager(dev, card):
                 counts = read_counts()
                 prof, prof_wall = device_profile(
                     lambda: run(graphs, steps=N_PROFILED), N_PROFILED)
+                if label in TWO_WINDOWS and not graphs:
+                    two_windows(f"{label} {mode}", prof,
+                                lambda: run(graphs, steps=N_PROFILED), card)
                 check_profiled_launches(f"{label} {mode}", prof,
                                         row_kernels[label])
                 device_ms = sum(r[1] for r in prof)
@@ -1729,6 +1876,57 @@ def phase_graphs_vs_eager(dev, card):
         rows[f"{label} on {N_RANKS} ranks"] = ranks_graphs_vs_eager(
             dev, card, label, wide[label])
     return rows
+
+
+class OpNames(TorchDispatchMode):
+    """Counts the ops dispatched, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def dispatched(run) -> collections.Counter:
+    """The ops ``run()`` dispatches, by name."""
+    with OpNames() as names:
+        run()
+    torch.cuda.synchronize()
+    return names.counts
+
+
+def two_windows(label, rows_a, run, card):
+    """A second profiled window of ``run()`` (``N_PROFILED`` steps) against
+    the first, ``rows_a``: prints whether the kernels a step are the same
+    by name, and which differ; then the ops two more calls dispatch, which
+    must be the same (a path that differs between two calls is a
+    fault)."""
+    def per_step(rows):
+        out = collections.Counter()
+        for key, _, cnt in rows:
+            out[key] += cnt
+        return out
+
+    a, b = per_step(rows_a), per_step(device_profile(run, N_PROFILED)[0])
+    diff = {k: (a[k], b[k]) for k in set(a) | set(b) if a[k] != b[k]}
+    line = (f"{label}: two profiled windows, {sum(a.values()):.1f} and "
+            f"{sum(b.values()):.1f} kernels a step")
+    if diff:
+        line += ("; by name (first, second): " + "; ".join(
+            f"{k[:70]} {x:.1f}, {y:.1f}" for k, (x, y) in sorted(
+                diff.items())))
+    else:
+        line += f", the same in {len(a)} names"
+    ops = [dispatched(run), dispatched(run)]
+    if ops[0] != ops[1]:
+        raise AssertionError(f"{label}: two calls dispatch other ops: "
+                             f"{(ops[0] - ops[1]) + (ops[1] - ops[0])}")
+    print(f"{line}; two more calls dispatch the same "
+          f"{sum(ops[0].values())} ops ({sum(ops[0].values()) / N_PROFILED:.1f}"
+          f" a step) [{card}]", flush=True)
 
 
 def ranks_graphs_vs_eager(dev, card, label, case):
@@ -1781,10 +1979,84 @@ def ranks_graphs_vs_eager(dev, card, label, case):
 
 def phase_bench(dev):
     """One run of ``python -m kid_tpu_torch.bench`` in this process; its
-    JSON line is printed as it prints it."""
+    JSON line is printed as it prints it, then its graphed and eager
+    solver-batch rates."""
     from kid_tpu_torch import bench
-    if bench.main([]) != 0:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    print(buf.getvalue(), end="", flush=True)
+    release_graphs()
+    if rc != 0:
         raise AssertionError("bench failed")
+    r = json.loads(buf.getvalue().strip().splitlines()[-1])
+    graphed = r["synthetic_mixed_phase_r03_metric"]
+    eager = r["synthetic_mixed_phase_eager"]
+    print(f"bench solver batch ({r['ncol']}, 120) f32: graphed "
+          f"{graphed:.0f} column-steps/s, eager {eager:.0f} "
+          f"({graphed / eager:.2f}x)", flush=True)
+
+
+def phase_oracle(dev, card):
+    """The float64 kernel path on the card against the port's oracle twin
+    on the host: mixed1 and aerosol1d for ORACLE_STEPS steps through
+    graphed ``simulate`` (``fused_step``; ``fused_rates`` and
+    ``fused_post``), scored with ``scores.score_against_oracle`` at
+    ``RTOL`` (nc, nwfa, nifa at ``RTOL_AEROSOL_EXTRAS``); cumulus2d and
+    orographic2d at ORACLE_2D through ``validation.twod.twin_equivalence``,
+    closures included.  Returns {path: launches}."""
+    from kid_tpu_torch.driver.cases import CASES
+    from kid_tpu_torch.tables.cache import get_tables
+    from kid_tpu_torch.validation import cases as V
+    from kid_tpu_torch.validation import scores, twod
+    from kid_tpu_torch.validation.driver_twin import oracle_simulate
+    paths, failed = {}, []
+    for name in ("mixed1", "aerosol1d"):
+        case = CASES[name]
+        t0 = time.perf_counter()
+        fo, ppt = oracle_simulate(case, ORACLE_STEPS,
+                                  get_tables(iiwarm=case.micro.iiwarm))
+        twin_s = time.perf_counter() - t0
+        final, rain, _, launches = V.run(case, torch.float64, ORACLE_STEPS,
+                                         dev, profile=False)
+        want = ({"fused_rates", "fused_post"} if case.micro.is_aerosol_aware
+                else {"fused_step"})
+        if launches != {k: ORACLE_STEPS * (k in want) for k in launches}:
+            raise AssertionError(f"oracle {name}: launches {launches}")
+        e = scores.score_against_oracle(
+            final, rain, {**fo, "ppt_rain": ppt["rain"]}, scores.RTOL,
+            scores.RTOL_AEROSOL_EXTRAS)
+        worst = max(e["fields"], key=e["fields"].get)
+        print(f"oracle {name} f64 on the card, {ORACLE_STEPS} steps, against "
+              f"the oracle twin on the host: worst field {worst} "
+              f"{e['fields'][worst]:.3e} (targets "
+              f"{e['worst_target_field_rel']:.3e}, limit {scores.RTOL:g}; "
+              f"extras {e['worst_aerosol_extra_rel']:.3e}, limit "
+              f"{scores.RTOL_AEROSOL_EXTRAS:g}), cumulative rain "
+              f"{e['cum_ppt_rain_rel']:.3e}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; pass="
+              f"{e['pass']} (twin {twin_s:.1f} s, all "
+              f"{time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+        paths[f"oracle_{name}"] = launches
+        if not e["pass"]:
+            failed.append(name)
+    for case in (CASES["cumulus2d"], CASES["orographic2d"]):
+        e = twod.twin_equivalence(dataclasses.replace(case, nx=ORACLE_2D[0]),
+                                  ORACLE_2D[1], dev)
+        worst = max(e["fields"], key=e["fields"].get)
+        print(f"oracle {twod.twin_line(case.name, e)}; worst field {worst}; "
+              f"launches { {k: v for k, v in e['launches'].items() if v} } "
+              f"[{card}]", flush=True)
+        if e["launches"] != {k: ORACLE_2D[1] * (k == "fused_step")
+                             for k in e["launches"]}:
+            raise AssertionError(f"oracle {case.name}: launches "
+                                 f"{e['launches']}")
+        paths[f"oracle_{case.name}"] = e["launches"]
+        if not e["pass"]:
+            failed.append(case.name)
+    if failed:
+        raise AssertionError(f"against the oracle twin: {failed}")
+    return paths
 
 
 def timed(phase, fn, *args):
@@ -1821,17 +2093,19 @@ def main() -> int:
     by_path = {"mixed1": records[0]["launches"]}
     by_path.update(timed("5", phase_2d, dev, card))
     by_path["mp_driver_3d"] = timed("5b", phase_wrf, dev, card)["fused_step"]
+    paths = timed("5b batched", phase_batched, dev, card)
     by_path["cumulus2d_2_ranks"] = timed("6a", phase_sharded_2d, dev, card)
     by_path["flagship_window"] = timed("6b", phase_flagship, dev, card)
     validation = timed("7", phase_validation, dev, card)
     timed("8", phase_bench, dev)
     timed("9", phase_graphs_vs_eager, dev, card)
+    paths.update(timed("10", phase_oracle, dev, card))
     records[0]["launches_by_path"] = by_path
-    for name, counts in validation.items():
+    paths.update({f"validation_{k}": v for k, v in validation.items()})
+    for name, counts in paths.items():
         for r in records:
             if counts[r["name"]]:
-                r.setdefault("launches_by_path", {})[
-                    f"validation_{name}"] = counts[r["name"]]
+                r.setdefault("launches_by_path", {})[name] = counts[r["name"]]
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)

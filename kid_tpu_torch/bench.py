@@ -9,9 +9,10 @@ the whole driver step (advection, provisional state, the table stage and
 ``fused_step``) widened to ``--ncol`` identical columns (8192 on the
 card), timed over ``--steps`` steps (100) from a spun-up state.  warm1,
 warm1_recon and aerosol1d are timed the same way; then the synthetic
-mixed-phase solver batch (one ``batched_microphysics`` call a step) and
-the flagship, cumulus2d widened to ``--flagship-nx`` columns (131072) at
-its 60 levels, 150 spin-up steps and 20 timed.
+mixed-phase solver batch (one ``batched_microphysics`` call a step,
+graphed on the card, and again eager) and the flagship, cumulus2d
+widened to ``--flagship-nx`` columns (131072) at its 60 levels, 150
+spin-up steps and 20 timed.
 
 Protocol (``bench.py:43-78``): spin-up, one warm window, then the best of
 2 timed windows that replay the warm window's steps (the flagship: one),
@@ -128,9 +129,12 @@ def example_batch(ncol, nz, dev, seed=0):
     return state, pres, w, dzq
 
 
-def synthetic_throughput(ncol, nz, steps, device="cuda"):
+def synthetic_throughput(ncol, nz, steps, device="cuda", graphs=True):
     """The solver alone on the synthetic batch, one call a step (the
-    reference bench's round-2/3 metric): column-steps/s."""
+    reference bench's round-2/3 metric): column-steps/s.  The first call,
+    untimed, captures the call as a CUDA graph on a card, as the
+    reference's first call compiles it; ``graphs=False``: every call
+    eager."""
     dev = resolve_device(device)
     cfg = MicroConfig(iiwarm=False)
     tables = device_tables(get_tables(iiwarm=False), DTYPE, dev)
@@ -138,7 +142,8 @@ def synthetic_throughput(ncol, nz, steps, device="cuda"):
 
     def step(s):
         return batched_microphysics(s, pres, w, dzq, 10.0, tables, cfg,
-                                    want_rates=False, device=dev)[0]
+                                    want_rates=False, device=dev,
+                                    graphs=graphs)[0]
 
     st = step(st)
     st.qr.cpu()
@@ -193,6 +198,8 @@ def main(argv=None) -> int:
     warm_recon, _ = case_throughput(WARM1_RECON, ncol, 2 * spin, steps, dev)
     aero, _ = case_throughput(AEROSOL1D, ncol, spin, steps, dev)
     synth = synthetic_throughput(ncol, 120, size["synthetic_steps"], dev)
+    synth_eager = synthetic_throughput(ncol, 120, size["synthetic_steps"],
+                                       dev, graphs=False)
     flag = flagship(size["flagship_nx"], size["flagship_spin"],
                     size["flagship_steps"], dev)
     value = mixed["column_steps_per_sec"]
@@ -204,6 +211,7 @@ def main(argv=None) -> int:
         "warm1_recon_case": warm_recon["column_steps_per_sec"],
         "aerosol1d_case": aero["column_steps_per_sec"],
         "synthetic_mixed_phase_r03_metric": synth,
+        "synthetic_mixed_phase_eager": synth_eager,
         "windows": {"mixed1": mixed, "warm1": warm,
                         "warm1_recon": warm_recon, "aerosol1d": aero},
         "flagship_2d": flag, "ncol": ncol, "spin_steps": spin,

@@ -9,6 +9,8 @@ integration is disabled in the KiD build (nrbins=0 at :204, code commented
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import constants as c
@@ -19,6 +21,13 @@ from ..micro.solver import (CGE, CGG, CIG, CRE, CRG, _cummin_rev,
 # Gamma(nu+4)/Gamma(nu+1) for nu = 1..15 (f90 g_ratio), indexed by nu-1
 G_RATIO = (24.0, 60.0, 120.0, 210.0, 336.0, 504.0, 720.0, 990.0, 1320.0,
            1716.0, 2184.0, 2730.0, 3360.0, 4080.0, 4896.0)
+
+
+@functools.lru_cache(maxsize=8)
+def _g_ratio(dtype, device):
+    """``G_RATIO`` on ``device``, made once, so that a captured call copies
+    nothing from the host."""
+    return torch.tensor(G_RATIO, dtype=dtype, device=device)
 
 
 def effective_radii(t, p, qv, qc, nc, qi, ni, qs, nt_c: float,
@@ -41,8 +50,8 @@ def effective_radii(t, p, qv, qc, nc, qi, ni, qs, nt_c: float,
     inu = torch.where(nc_ < 100.0, 15.0, torch.where(
         nc_ > 1.0e10, 2.0,
         torch.clamp(torch.floor(1000.0e6 / nc_ + 0.5) + 2.0, max=15.0)))
-    g_ratio = torch.tensor(G_RATIO, dtype=nc_.dtype, device=nc_.device)
-    gr = g_ratio[torch.clamp(inu, 2.0, 15.0).long() - 1]
+    gr = _g_ratio(nc_.dtype, nc_.device)[
+        torch.clamp(inu, 2.0, 15.0).long() - 1]
     lamc = torch.pow(nc_ * c.AM_R * gr / rc, c.OBMR)
     # active floor 2.51 um (f90:4884), inactive default 2.49 um (the value
     # the WRF driver presets before the CYCLE'd levels)

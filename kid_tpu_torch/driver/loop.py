@@ -29,7 +29,6 @@ host-staged collective).
 """
 from __future__ import annotations
 
-import collections
 import os
 import time
 from typing import NamedTuple, Optional
@@ -41,6 +40,7 @@ from .. import constants as c
 from ..device import check_on, resolve_device
 from ..micro import ColumnState, batched_microphysics, cuda_build
 from ..micro import solver as S
+from ..micro.graphs import GRAPH_DEVICE_TYPES, LRUCache, capture
 from ..micro.solver import device_tables
 from ..tables.cache import get_tables
 from .advection import (advective_tendency_x_padded, advective_tendency_z,
@@ -56,9 +56,6 @@ CHUNK_STEPS = 16
 # column blocks kept (``BLOCKS``), each with its flow and at most one
 # captured step, which holds its step's intermediates on the card
 BLOCK_CACHE_SIZE = 4
-# the device types on which ``simulate`` captures its step (the tests put a
-# stand-in capture on the CPU)
-GRAPH_DEVICE_TYPES = ("cuda",)
 
 
 class KidState(NamedTuple):
@@ -236,9 +233,10 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
                 st, w_pat[0], m, tv, pres2[0], exner, rho0, dz, cfg,
                 float(dt), want_rates)
         else:
+            # the solver's body: this step is itself captured
             out, ppt, diag = batched_microphysics(
                 micro_in, pres2, w_cent, dzq2, dt, tables, cfg,
-                want_rates=want_rates, device=dev)
+                want_rates=want_rates, device=dev, graphs=False)
             new = KidState(
                 theta=out.t / exner, qv=out.qv, qc=out.qc, qr=out.qr,
                 nr=out.nr, qi=out.qi, ni=out.ni, qs=out.qs, qg=out.qg,
@@ -361,18 +359,10 @@ class CapturedStep:
 
     def __init__(self, loop: StepLoop, state0: KidState, key, tables):
         t0 = time.perf_counter()
-        dev = loop.m_buf.device
         self.loop, self.key, self.tables = loop, key, tables
-        cuda_build.build()
         loop.state = KidState(*[t.clone() for t in state0])
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            cuda_build.take_launches(loop.advance)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.launches = cuda_build.take_launches(loop.step_in_place)
+        self.graph, self.launches, _ = capture(
+            loop.advance, loop.step_in_place, loop.m_buf.device)
         self.ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, state0: KidState):
@@ -412,33 +402,17 @@ class Block:
         return self.captured
 
 
-class BlockCache:
+class BlockCache(LRUCache):
     """``Block``s by (case, dtype, device, lo, hi); beyond ``size`` the
     least recently used is dropped, and with it its flow and its captured
     step's graph and memory."""
-
-    def __init__(self, size: int):
-        self.size = size
-        self._entries = collections.OrderedDict()
 
     def get(self, case: Case, dtype, device, lo: int = 0,
             hi: Optional[int] = None) -> Block:
         """The ``Block`` of columns ``lo:hi`` (default: all) of ``case`` on
         ``device`` (a ``torch.device``), built on the first call."""
-        key = (case, dtype, device, lo, hi)
-        entry = self._entries.pop(key, None)
-        if entry is None:
-            entry = Block(build_flow(case, dtype, device, lo, hi))
-        self._entries[key] = entry
-        while len(self._entries) > self.size:
-            self._entries.popitem(last=False)
-        return entry
-
-    def clear(self):
-        self._entries.clear()
-
-    def __len__(self):
-        return len(self._entries)
+        return super().get((case, dtype, device, lo, hi), lambda: Block(
+            build_flow(case, dtype, device, lo, hi)))
 
 
 BLOCKS = BlockCache(BLOCK_CACHE_SIZE)

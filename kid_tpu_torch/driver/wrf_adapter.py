@@ -58,20 +58,43 @@ def _repair_negative_qv(qv):
 def mp_driver_3d(qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz,
                  dt, rainnc, snownc, graupelnc,
                  tables: DeviceTables, cfg: MicroConfig,
-                 want_eff_rad: bool = False, device="cuda"):
+                 want_eff_rad: bool = False, device="cuda",
+                 graphs: bool = True):
     """One microphysics step on a WRF-shaped (i, k, j) tile on ``device``.
 
     Args mirror mp_gt_driver's signature (f90:806-820): mixing ratios and
     numbers (i,k,j); ``th`` potential temperature; ``pii`` Exner; pressure,
     vertical velocity, layer thickness; accumulators (i,j).  Every tensor
     must lie on ``device``; raises without a GPU unless ``device="cpu"``.
+    The reference compiles the whole call (``jax.jit``): on a card, with
+    ``graphs``, it is captured as a CUDA graph once per (the tile's
+    shapes, dtype, device, ``cfg``, ``dt``, ``want_eff_rad``, tables) and
+    replayed (``micro.graphs.run``; ``graphs=False`` and the CPU run it
+    eagerly).  A failed capture raises.
 
-    Returns (fields dict, WrfPrecip, effective radii dict or None).
+    Returns (fields dict, WrfPrecip, effective radii dict or None), the
+    caller's own.
     """
+    from ..micro import graphs as G
     dev = resolve_device(device)
-    for a in (qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz, rainnc,
-              snownc, graupelnc):
+    args = (qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz, rainnc,
+            snownc, graupelnc)
+    for a in args:
         check_on(a, dev)
+    dt_f = float(dt)
+
+    def body(*a):
+        return _mp_driver_body(*a, dt_f, tables, cfg, want_eff_rad)
+
+    return G.run(body, args, ("mp_driver_3d", cfg, dt_f, want_eff_rad,
+                              id(tables)), graphs)
+
+
+def _mp_driver_body(qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz,
+                    rainnc, snownc, graupelnc, dt, tables, cfg,
+                    want_eff_rad):
+    """``mp_driver_3d``'s step, eagerly: the layout moves, the column
+    solver's body, the vapor repair, the accumulators and the radii."""
     ni_, nk, nj = qv.shape
     cols = _ikj_to_cols
     t_cols = cols(th) * cols(pii)                      # f90:937
@@ -87,7 +110,7 @@ def mp_driver_3d(qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz,
     # the rate profiles are not returned, so the kernel skips them
     out, ppt, _ = batched_microphysics(
         state, p_c, cols(w), cols(dz), dt, tables, cfg, want_rates=False,
-        device=dev)
+        device=p_c.device, graphs=False)
 
     qv_new = _repair_negative_qv(out.qv)
     fields = {

@@ -1641,11 +1641,53 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
 
 def batched_microphysics(state: ColumnState, pres, w, dzq, dt,
                          tables: DeviceTables, cfg: MicroConfig,
-                         want_rates: bool = True, device="cuda"):
+                         want_rates: bool = True, device="cuda",
+                         graphs: bool = True):
     """Batched columns (the reference's ``do i=1,nx`` loop,
     mphys_thompson09n.f90:54) on ``device``; every tensor must lie there.
-    Raises without a GPU unless ``device="cpu"``."""
+    Raises without a GPU unless ``device="cpu"``.
+
+    The reference compiles this call (``jax.jit``).  On a card, with
+    ``graphs``, ``column_microphysics`` is captured once as a CUDA graph
+    per (shapes, dtype, device, ``cfg``, ``dt``, ``want_rates``, tables)
+    and replayed (``graphs.run``); ``graphs=False`` and the CPU run it
+    eagerly.  A failed capture raises.  The outputs are the caller's own.
+    Never call the graphed form inside another capture: ``simulate``'s
+    step and ``mp_driver_3d`` take ``graphs=False``."""
+    from . import graphs as G
+    dev = resolve_device(device)
     for t in (*state, pres, dzq):
-        check_on(t, device)
-    return column_microphysics(state, pres, w, dzq, dt, tables, cfg,
-                               want_rates)
+        check_on(t, dev)
+    if w is not None:
+        check_on(w, dev)
+    dt_f = float(dt)
+
+    def body(*a):
+        return column_microphysics(ColumnState(*a[:12]), a[12], a[13],
+                                   a[14], dt_f, tables, cfg, want_rates)
+
+    return G.run(body, (*state, pres, w, dzq),
+                 ("batched_microphysics", cfg, dt_f, want_rates, id(tables)),
+                 graphs)
+
+
+def vmapped_microphysics(state: ColumnState, pres, w, dzq, dt,
+                         tables: DeviceTables, cfg: MicroConfig,
+                         device="cuda"):
+    """The reference's ``vmap`` cross-check of the batched solver
+    (``kid_tpu/micro/solver.py:2176``): each column runs alone, as a
+    (1, nz) batch through ``column_microphysics`` with the rate profiles,
+    eagerly, and the results are stacked.  Every tensor must lie on
+    ``device`` (``pres``, ``w`` and ``dzq`` with a row a column); raises
+    without a GPU unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    for t in (*state, pres, w, dzq):
+        check_on(t, dev)
+    outs = [column_microphysics(
+        ColumnState(*[t[i:i + 1] for t in state]), pres[i:i + 1],
+        w[i:i + 1], dzq[i:i + 1], dt, tables, cfg, True)
+        for i in range(state.qv.shape[0])]
+    st, ppt, diag = zip(*outs)
+    return (ColumnState(*[torch.cat(f) for f in zip(*st)]),
+            Precip(*[torch.cat(f) for f in zip(*ppt)]),
+            {k: torch.cat([d[k] for d in diag]) for k in diag[0]})

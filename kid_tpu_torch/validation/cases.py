@@ -5,18 +5,25 @@ float64 oracle finals (the port's counterpart of ``validate_cases.py`` and
     python -m kid_tpu_torch.validation.cases --dtype float32 --out v.json
     python -m kid_tpu_torch.validation.cases --device cpu --cases mixed1 \\
         --steps 20 --dtype float64
+    python -m kid_tpu_torch.validation.cases --device cpu --cases mixed1 \\
+        --steps 20 --dtype float64 --write-finals finals_dir
 
 Each case of ``RUNS`` runs at its own length through ``simulate`` and is
-scored against ``validation_finals/<case>.npz``, the NumPy oracle twin's
-float64 finals, rain series and time means, read as data: nothing here
-imports the oracle or the JAX driver.  In float64 the target fields and
-the cumulative rain must hold to ``scores.RTOL`` and nc/nwfa/nifa to
-``scores.RTOL_AEROSOL_EXTRAS``; in float32 the fixed budgets on the
-integrated quantities hold (``scores.score_1d_f32``), and the chaos member
-(the same run from a 1e-7-perturbed qv) gives the ensemble spread as
-evidence.  ``run_ref_precision_model`` is the reference's own precision
-design, a float64 driver whose state is rounded to float32 every step.
-Prints one line per case and a JSON summary; exits 1 if a case fails.
+scored against ``validation_finals/<case>.npz``: the oracle twin's float64
+finals, rain series and time means, which ``validate_cases.py`` wrote from
+the JAX package's twin.  With ``--write-finals DIR`` the port's own twin
+(``driver_twin.oracle_simulate``, the NumPy oracle on the host) first
+runs each case for the same steps and writes ``DIR/<case>.npz`` in that
+layout (``write_finals``), and the case is scored against it; the
+committed files are written only if DIR names their directory.  In
+float64 the target fields and the cumulative rain must hold to
+``scores.RTOL`` and nc/nwfa/nifa to ``scores.RTOL_AEROSOL_EXTRAS``; in
+float32 the fixed budgets on the integrated quantities hold
+(``scores.score_1d_f32``), and the chaos member (the same run from a
+1e-7-perturbed qv) gives the ensemble spread as evidence.
+``run_ref_precision_model`` is the reference's own precision design, a
+float64 driver whose state is rounded to float32 every step.  Prints one
+line per case and a JSON summary; exits 1 if a case fails.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from ..micro import cuda_build
 from ..micro.solver import device_tables
 from ..tables.cache import get_tables
 from . import scores
+from .driver_twin import oracle_simulate
 
 # case -> steps (validate_cases.py:61)
 RUNS = {"warm1": 3600, "warm1_recon": 3600, "mixed1": 1800, "deep1": 1800,
@@ -45,10 +53,27 @@ FINALS_DIR = Path(__file__).resolve().parents[2] / "validation_finals"
 QV_PERTURBATION = 1.0e-7
 
 
-def load_anchor(name: str) -> dict:
+def load_anchor(name: str, finals_dir=FINALS_DIR) -> dict:
     """The oracle's float64 anchor of a case, as a dict of arrays."""
-    with np.load(FINALS_DIR / f"{name}.npz") as z:
+    with np.load(Path(finals_dir) / f"{name}.npz") as z:
         return {k: z[k] for k in z.files}
+
+
+def write_finals(name: str, n_steps: int, finals_dir) -> Path:
+    """``n_steps`` of case ``name`` through the oracle twin, written as
+    ``finals_dir/<name>.npz`` in ``validate_cases.py``'s layout: the rain
+    series ``ppt_rain``, the final fields and their time means
+    ``tmean_<field>``.  Returns the path."""
+    case = CASES[name]
+    fo, ppt, means = oracle_simulate(
+        case, n_steps, get_tables(iiwarm=case.micro.iiwarm),
+        want_means=True)
+    path = Path(finals_dir) / f"{name}.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, ppt_rain=ppt["rain"],
+             **{f: fo[f] for f in KidState._fields},
+             **{f"tmean_{f}": means[f] for f in KidState._fields})
+    return path
 
 
 def _host(t) -> np.ndarray:
@@ -101,14 +126,15 @@ def run_ref_precision_model(case, n_steps: int, device="cuda"):
 
 
 def validate_case(name: str, dtype=torch.float32, device="cuda",
-                  n_steps=None, chaos=False, ref_precision=False) -> dict:
-    """One case run and scored against its anchor (see the module
-    docstring); ``chaos`` adds the perturbed member's spread,
+                  n_steps=None, chaos=False, ref_precision=False,
+                  finals_dir=FINALS_DIR) -> dict:
+    """One case run and scored against its anchor in ``finals_dir`` (see
+    the module docstring); ``chaos`` adds the perturbed member's spread,
     ``ref_precision`` the reference precision model's scores.  The
     entry's ``pass`` is the dtype's rule."""
     case = CASES[name]
     n = RUNS[name] if n_steps is None else n_steps
-    anchor = load_anchor(name)
+    anchor = load_anchor(name, finals_dir)
     # a short run's rain is held to the anchor's first steps; its final
     # fields are still the anchor's at full length
     anchor["ppt_rain"] = anchor["ppt_rain"][:n]
@@ -182,6 +208,9 @@ def main(argv=None) -> int:
                          "perturbed member, or 'all'")
     ap.add_argument("--ref-precision", action="store_true",
                     help="also run the reference precision model")
+    ap.add_argument("--write-finals", default=None, metavar="DIR",
+                    help="run the port's oracle twin for each case first, "
+                         "write DIR/<case>.npz and score against it")
     ap.add_argument("--out", default=None, help="JSON report path")
     args = ap.parse_args(argv)
     names = [c for c in args.cases.split(",") if c]
@@ -196,8 +225,16 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         report["card"] = torch.cuda.get_device_name(dev)
     for name in names:
+        finals_dir = FINALS_DIR
+        if args.write_finals:
+            t0 = time.perf_counter()
+            finals_dir = args.write_finals
+            path = write_finals(name, RUNS[name] if args.steps is None
+                                else args.steps, finals_dir)
+            print(f"{name}: the oracle twin's finals written to {path} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
         e = validate_case(name, dtype, dev, args.steps, name in chaos,
-                          args.ref_precision)
+                          args.ref_precision, finals_dir)
         report["cases"][name] = e
         print(summary_line(name, e), flush=True)
     report["all_pass"] = all(e["pass"] for e in report["cases"].values())

@@ -5,6 +5,7 @@ anchors (the port's counterpart of ``validate_2d.py`` and
     python -m kid_tpu_torch.validation.twod --out v2d.json
     python -m kid_tpu_torch.validation.twod --device cpu --steps 30 \\
         --no-conservation
+    python -m kid_tpu_torch.validation.twod --twin [--device cpu]
 
 cumulus2d and orographic2d run at their own size and length in float32
 through ``simulate``, and cumulus2d once more on ``RANKS`` ranks through
@@ -13,12 +14,16 @@ against ``validation_finals/<case>_2dfp64.npz`` (cumulative domain precip,
 final water paths, time-mean profiles, the water-budget closure), and the
 sharded run must equal the single-process one bit for bit.  The float64
 water-budget closure of both cases at full length is held to
-``scores.CONS_TOL``.  Prints one line per row and a JSON summary; exits 1
-if a row fails.
+``scores.CONS_TOL``.  ``--twin`` runs the oracle-twin rows instead
+(``twin_equivalence``, ``validate_2d.py:83-111``): both cases at
+``TWIN_NX`` columns for ``TWIN_STEPS`` steps (or ``--steps``) through the
+float64 driver and through the port's oracle twin on the host.  Prints
+one line per row and a JSON summary; exits 1 if a row fails.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -36,9 +41,12 @@ from ..micro.solver import device_tables
 from ..tables.cache import get_tables
 from . import scores
 from .cases import FINALS_DIR
+from .driver_twin import oracle_simulate
 
 PPT = ("rain", "snow", "graupel", "ice")
 RANKS = 2                # of the sharded cumulus2d row
+# the oracle-twin rows' width and length (validate_2d.py:158-159)
+TWIN_NX, TWIN_STEPS = 16, 200
 
 
 def _host(t) -> np.ndarray:
@@ -122,6 +130,45 @@ def conservation(case, device="cuda", n_steps=None) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def twin_equivalence(case, n_steps: int, device="cuda") -> dict:
+    """``case`` (at its own width: narrow it first) through the float64
+    driver on ``device`` and through the oracle twin on the host
+    (validate_2d.py:83-111): the driver's finals and domain rain series
+    against the twin's at ``scores.RTOL`` (nc/nwfa/nifa at
+    ``scores.RTOL_AEROSOL_EXTRAS``), and the two water-budget closures,
+    which must match (``closure_match``: within 1e-8 + 1e-3 of the twin's):
+    the scheme's non-conservation is the oracle's own."""
+    t0 = time.perf_counter()
+    r = run_2d(case, torch.float64, device, n_steps)
+    fo, ppt_o = oracle_simulate(case, n_steps,
+                                get_tables(iiwarm=case.micro.iiwarm))
+    entry = scores.score_against_oracle(
+        r["final"], r["ppt"]["rain"].sum(1),
+        {**fo, "ppt_rain": ppt_o["rain"].sum(1)}, scores.RTOL,
+        scores.RTOL_AEROSOL_EXTRAS)
+    grid = case.grid()
+    cj = scores.closure(grid.rho0, grid.dz, r["fields0"], r["final"],
+                        sum(v.sum() for v in r["ppt"].values()))
+    co = scores.closure(grid.rho0, grid.dz, r["fields0"], fo,
+                        sum(v.sum() for v in ppt_o.values()))
+    entry.update(closure_driver=cj, closure_oracle_twin=co,
+                 closure_match=bool(abs(cj - co) <= 1e-8 + 1e-3 * abs(co)),
+                 n_steps=n_steps, nx=case.nx, launches=r["launches"])
+    entry["pass"] = entry["pass"] and entry["closure_match"]
+    entry["seconds"] = time.perf_counter() - t0
+    return entry
+
+
+def twin_line(name: str, e: dict) -> str:
+    return (f"{name} twin nx={e['nx']} x{e['n_steps']}: worst final field "
+            f"{e['worst_target_field_rel']:.3e}, extras "
+            f"{e['worst_aerosol_extra_rel']:.3e}, cumulative precip "
+            f"{e['cum_ppt_rain_rel']:.3e}, closure driver "
+            f"{e['closure_driver']:.6e} twin {e['closure_oracle_twin']:.6e} "
+            f"match={e['closure_match']}; pass={e['pass']} "
+            f"({e['seconds']:.1f} s)")
+
+
 def line(name: str, e: dict) -> str:
     return (f"{name}: cumulative precip {e['cum_ppt_rain_rel']:.3e}, water "
             f"paths wvp {e['final_wvp_rel']:.3e} lwp "
@@ -142,6 +189,9 @@ def main(argv=None) -> int:
                     help="steps of every run (default: the case length)")
     ap.add_argument("--no-conservation", action="store_true",
                     help="skip the float64 closure runs")
+    ap.add_argument("--twin", action="store_true",
+                    help=f"run the oracle-twin rows instead (nx={TWIN_NX}, "
+                         f"{TWIN_STEPS} steps unless --steps)")
     ap.add_argument("--out", default=None, help="JSON report path")
     args = ap.parse_args(argv)
     try:
@@ -149,6 +199,8 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"validation: {e}", file=sys.stderr)
         return 2
+    if args.twin:
+        return twin_main(dev, args.steps or TWIN_STEPS, args.out)
     report = {"device": str(dev), "rows": {}, "conservation": {}}
     single = {}
     for case in (CUMULUS2D, OROGRAPHIC2D):
@@ -179,6 +231,22 @@ def main(argv=None) -> int:
         for e in d.values())
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=1))
+    print(json.dumps({"device": report["device"],
+                      "all_pass": report["all_pass"]}))
+    return 0 if report["all_pass"] else 1
+
+
+def twin_main(dev, n_steps: int, out) -> int:
+    """The oracle-twin rows of ``main --twin``."""
+    report = {"device": str(dev), "twin": {}}
+    for case in (CUMULUS2D, OROGRAPHIC2D):
+        e = twin_equivalence(dataclasses.replace(case, nx=TWIN_NX),
+                             n_steps, dev)
+        report["twin"][case.name] = e
+        print(twin_line(case.name, e), flush=True)
+    report["all_pass"] = all(e["pass"] for e in report["twin"].values())
+    if out:
+        Path(out).write_text(json.dumps(report, indent=1))
     print(json.dumps({"device": report["device"],
                       "all_pass": report["all_pass"]}))
     return 0 if report["all_pass"] else 1

@@ -243,7 +243,8 @@ def test_bench_prints_one_json_line(capsys):
     assert r["metric"] == "column_steps_per_sec_mixed1_case_nz120"
     assert r["backend"] == "cpu" and r["device"] == "cpu"
     for k in ("value", "warm1_case", "warm1_recon_case", "aerosol1d_case",
-              "synthetic_mixed_phase_r03_metric"):
+              "synthetic_mixed_phase_r03_metric",
+              "synthetic_mixed_phase_eager"):
         assert np.isfinite(r[k]) and r[k] > 0, k
     assert r["flagship_2d"]["nx"] == 128 and r["flagship_2d"]["nz"] == 60
     assert r["vs_baseline"] == r["value"] / 1.0e4
