@@ -63,7 +63,9 @@ on failure:
      run through ``simulate`` in timed windows (median and best, bit for
      bit the same), a profile, scores against the float64 driver's
      finals in ``validation_finals/`` with the budgets of the reference's
-     f32 validation, and ``fused_step`` timed on the path's last input;
+     f32 validation, the worst final field (target and extra) with the
+     column and level of its largest difference, and ``fused_step``
+     timed on the path's last input;
   5b. ``mp_driver_3d`` on a WRF-shaped (i, k, j) = (128, 120, 64) tile of
      mixed1's sounding with phase 4's seeded layers, graphed (the
      default: a CUDA graph of the whole call) and eager, with and without
@@ -90,6 +92,13 @@ on failure:
      on the path's last input, then the same 20 steps on 2 ranks (graphed)
      from the spun-up state, the same bits; ms/step, column-steps/s, each
      rank's ms/step, exchange share, capture ms and peak device memory;
+  6c. one rank of ``simulate_sharded`` (``dist.launch``, gloo) on
+     cumulus2d at its 64 x 60 for all 900 steps in float32, graphed, the
+     halo exchange held in the step (its edge columns packed into the
+     ghost buffers: one rank's periodic wrap), so one replay is one whole
+     step: bit for bit ``simulate``'s run, one exchange and one
+     ``fused_step`` counted a replay, no host call of the exchange in a
+     profiled window, its ms/step beside ``simulate``'s;
   7. the five 1-D cases at full length in float32 through
      ``validation.cases``, against the oracle's float64 finals in
      ``validation_finals/`` with the reference's fixed budgets, the
@@ -119,12 +128,19 @@ on failure:
      within ``RTOL`` 1e-4 on the target fields and the cumulative rain
      and 1e-3 on nc, nwfa and nifa; cumulus2d and orographic2d at 16
      columns for 50 steps through ``validation.twod.twin_equivalence``,
-     closures matched; each entry's worst field and seconds.
+     closures matched; each entry's worst field and seconds;
+ 11. the CLI: ``python -m kid_tpu_torch run mixed1`` for 50 steps with
+     ``--out`` (NetCDF) and ``--checkpoint-dir``, then ``--resume`` to
+     100: the NetCDF file byte for byte the one ``registry_from_run``
+     writes from ``simulate``'s streams, the resumed state bit for bit
+     ``simulate``'s over 100 steps; both runs' wall seconds.
 
-Phases 3-3c, 4 (its kernel path), 5, 6, 7, 8 and 10 run ``simulate``'s
-and ``simulate_sharded``'s default: a CUDA graph of the step, captured
-once per case, column block, dtype, tables and streams and replayed once
-a step (a rank exchanges its halo on the host between two replays).  The
+Phases 3-3c, 4 (its kernel path), 5, 6, 7, 8, 10 and 11 run
+``simulate``'s and ``simulate_sharded``'s default: a CUDA graph of the
+step, captured once per case, column block, dtype, tables and streams and
+replayed once a step (ranks sharing this card under gloo exchange their
+halo on the host between two replays; one rank's graph holds its
+exchange).  The
 plain runs of phase 4 run the eager loop.  ``batched_microphysics`` and
 ``mp_driver_3d`` called on their own replay a CUDA graph of the call
 (``kid_tpu_torch/micro/graphs.py``), dropped after phases 5b and 8.
@@ -155,6 +171,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -218,6 +235,8 @@ BATCHED_CELLS = {"mixed": (False, False, ("fused_step",)),
 # phase 10: steps of the 1-D cases; (columns, steps) of the 2-D cases
 ORACLE_STEPS = 100
 ORACLE_2D = (16, 50)
+# phase 11: steps of the CLI's first run; the resumed run doubles them
+CLI_STEPS = 50
 
 
 def card_line() -> str:
@@ -1228,6 +1247,9 @@ def phase_2d(dev, card):
             {f: host(getattr(final, f)) for f in names},
             {k[4:]: host(getattr(streams, k)) for k in PPT},
             {f: host(streams.profiles[f]).mean(0) for f in names}, anchor)
+        print(worst_field_line(case, entry, {f: host(getattr(final, f))
+                                            for f in names}, anchor, card),
+              flush=True)
         print(f"2-D {case.name} f32 against the f64 anchor: cumulative "
               f"precip {entry['cum_ppt_rain_rel']:.3e} (budget 2e-2), final "
               f"water paths wvp {entry['final_wvp_rel']:.3e} lwp "
@@ -1268,6 +1290,30 @@ def phase_2d(dev, card):
                       f"{res['regs']} regs, {res['blocks_per_sm']} blocks "
                       f"of {(nz + 31) // 32 * 32} threads/SM)")
     return launches
+
+
+def worst_field_line(case, entry, final, anchor, card) -> str:
+    """Which final field scores worst against the anchor (the largest
+    |f32 - f64| over the anchor field's largest magnitude), among the
+    target fields and among nc, nwfa and nifa, and at which column and
+    level its largest difference lies (not gated: the reference's 2-D f32
+    validation gates integrated quantities only)."""
+    from kid_tpu_torch.validation.scores import TARGET_FIELDS
+    z = case.grid().z
+    parts = []
+    for label, fields in (("target", TARGET_FIELDS),
+                          ("extra", [f for f in entry["fields"]
+                                     if f not in TARGET_FIELDS])):
+        f = max(fields, key=lambda k: entry["fields"][k])
+        want = np.asarray(anchor[f], np.float64)
+        col, lev = np.unravel_index(np.abs(final[f] - want).argmax(),
+                                    want.shape)
+        parts.append(f"worst {label} field {f} {entry['fields'][f]:.3e} at "
+                     f"column {col}, level {lev} (z {z[lev]:.0f} m): f32 "
+                     f"{final[f][col, lev]:.4e}, f64 anchor "
+                     f"{want[col, lev]:.4e}, anchor max "
+                     f"{np.abs(want).max():.4e}")
+    return f"2-D {case.name} f32 final fields: {'; '.join(parts)} [{card}]"
 
 
 def wrf_tile(dev, dtype=torch.float32):
@@ -1715,6 +1761,134 @@ def phase_flagship(dev, card):
     return counts["fused_step"]
 
 
+def phase_one_rank_in_step(dev, card):
+    """cumulus2d at its own 64 x 60 for all 900 steps in float32 on one
+    rank of ``simulate_sharded`` (``dist.launch``, gloo on this card),
+    graphed, its capture in 20 warm-up steps: the step holds the halo
+    exchange (the edge columns packed into the ghost buffers, one rank's
+    periodic wrap), so one replay is one whole step.  The same bits as
+    ``simulate``, one exchange and one ``fused_step`` counted a replay,
+    and, in ``N_PROFILED`` profiled steps more, no host call of the
+    exchange; the rank's ms/step beside ``simulate``'s (host clock, each
+    after a call that captured its step).  Returns the rank's
+    ``fused_step`` launches."""
+    from kid_tpu_torch.dist import launch
+    from kid_tpu_torch.driver.cases import CUMULUS2D
+    from kid_tpu_torch.driver.loop import KidState, initial_state, simulate
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    case, dtype, n = CUMULUS2D, torch.float32, CUMULUS2D.n_steps
+    tables = device_tables(get_tables(iiwarm=True), dtype, dev)
+    st0 = initial_state(case, dtype, dev)
+    simulate(st0, tables, case, 1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, out = simulate(st0, tables, case, n, device=dev)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    run = launch.run_sharded(case, 1, n, dtype, [str(dev)], "gloo",
+                             warmup_steps=20, profile_steps=N_PROFILED)
+    run_s = time.perf_counter() - t0
+    diffs = [f for f in KidState._fields if not np.array_equal(
+        getattr(final, f).cpu().numpy(), run.fields[f])]
+    diffs += [k for k in PPT if not np.array_equal(
+        getattr(out, k).cpu().numpy(), run.ppt[k])]
+    if diffs:
+        raise AssertionError(f"cumulus2d on one rank, the exchange in the "
+                             f"step, differs from simulate in {diffs}")
+    check_ranks("cumulus2d on one rank", run.ranks, n, True)
+    (r,) = run.ranks
+    prof = r["profile"]
+    if r["placement"] != "step" or prof["host_exchange_calls"] != 0.0:
+        raise AssertionError(f"cumulus2d on one rank: exchange "
+                             f"{r['placement']}, {prof} in the replays")
+    print(f"one rank of simulate_sharded, cumulus2d ({case.nx}, {case.nz}) "
+          f"f32, {n} steps ({r['device']}, gloo, graphed, the exchange in "
+          f"the step): bit for bit simulate's run (finals and the four "
+          f"precip series), {r['exchange_calls']} exchanges and "
+          f"{r['launches']['fused_step']} fused_step launches counted, "
+          f"{prof['host_exchange_calls']:.0f} host calls of the exchange a "
+          f"profiled step; {r['ms_per_step']:.3f} ms/step (host clock; "
+          f"simulate {one_ms:.3f}), device {prof['device_ms']:.3f} ms/step "
+          f"(profiler, {N_PROFILED} steps), capture {r['capture_ms']:.1f} "
+          f"ms, peak {r['peak_bytes'] / 2**30:.2f} GiB; {run_s:.1f} s with "
+          f"spawning [{card}]", flush=True)
+    return r["launches"]["fused_step"]
+
+
+def phase_cli(dev, card):
+    """``python -m kid_tpu_torch run mixed1`` on this card for
+    ``CLI_STEPS`` steps with ``--out`` (classic NetCDF) and
+    ``--checkpoint-dir``, then ``--resume`` to twice as many: the first
+    run's NetCDF file is the one ``registry_from_run`` writes from
+    ``simulate``'s streams over the same steps, byte for byte, and the
+    resumed run's checkpointed state is ``simulate``'s over
+    ``2 * CLI_STEPS`` steps in one call, bit for bit; both runs' wall
+    seconds (a process each: the import, the tables from their cache, the
+    kernel libraries loaded, the capture)."""
+    from kid_tpu_torch.diag.registry import registry_from_run
+    from kid_tpu_torch.driver.cases import MIXED1
+    from kid_tpu_torch.driver.loop import (ALL_PROFILE_NAMES,
+                                           FUSED_DRIVER_ENV, KidState,
+                                           initial_state, simulate)
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    from kid_tpu_torch.utils.checkpoint import RunCheckpointer
+    case, dtype, n = MIXED1, torch.float32, CLI_STEPS
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    env.pop(FUSED_DRIVER_ENV, None)
+    with tempfile.TemporaryDirectory(prefix="kid_cli_") as tmp:
+        got_nc, want_nc = Path(tmp) / "cli.nc", Path(tmp) / "simulate.nc"
+        ck = Path(tmp) / "ck"
+        walls, said = [], []
+        for args in (("--steps", str(n), "--out", str(got_nc)),
+                     ("--steps", str(2 * n), "--resume")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "kid_tpu_torch", "run", case.name,
+                 "--checkpoint-dir", str(ck), *args], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=600)
+            walls.append(time.perf_counter() - t0)
+            if proc.returncode:
+                raise AssertionError(f"CLI {args}: exit {proc.returncode}: "
+                                     f"{proc.stdout[-1000:]}"
+                                     f"{proc.stderr[-2000:]}")
+            said.append(" ".join(line.strip() for line in
+                                 proc.stdout.splitlines()
+                                 if "done in" in line or "resumed" in line))
+        tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype,
+                               dev)
+        st0 = initial_state(case, dtype, dev)
+        _, streams = simulate(st0, tables, case, n, ALL_PROFILE_NAMES,
+                              device=dev)
+        reg = registry_from_run(case.name, streams, case.nx)
+        reg.to_netcdf(str(want_nc))
+        got, want = got_nc.read_bytes(), want_nc.read_bytes()
+        if got != want:
+            first = next((i for i, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+            raise AssertionError(f"CLI NetCDF ({len(got)} bytes) differs "
+                                 f"from simulate's ({len(want)} bytes) from "
+                                 f"byte {first}")
+        final, _ = simulate(st0, tables, case, 2 * n, ALL_PROFILE_NAMES,
+                            device=dev)
+        step, saved = RunCheckpointer(str(ck), case.name).restore(device=dev)
+    bad = [f for f in KidState._fields
+           if not torch.equal(getattr(saved, f), getattr(final, f))]
+    if step != 2 * n or bad:
+        raise AssertionError(f"CLI resumed to step {step}: differs from "
+                             f"simulate over {2 * n} steps in {bad}")
+    print(f"CLI: python -m kid_tpu_torch run {case.name} (nx {case.nx}, nz "
+          f"{case.nz}, f32, every stream) --steps {n} --out .nc "
+          f"--checkpoint-dir: {walls[0]:.1f} s wall, its NetCDF file "
+          f"({len(got)} bytes, {len(reg.names())} streams) byte for byte "
+          f"the one simulate's streams give; --steps {2 * n} --resume: "
+          f"{walls[1]:.1f} s wall, its state at step {step} bit for bit "
+          f"simulate's over {2 * n} steps in one call; the CLI said: "
+          f"{' | '.join(said)} [{card}]", flush=True)
+
+
 def phase_validation(dev, card):
     """The five 1-D cases at full length in float32, scored against the
     oracle's float64 finals with the reference's fixed f32 budgets, the
@@ -2096,10 +2270,13 @@ def main() -> int:
     paths = timed("5b batched", phase_batched, dev, card)
     by_path["cumulus2d_2_ranks"] = timed("6a", phase_sharded_2d, dev, card)
     by_path["flagship_window"] = timed("6b", phase_flagship, dev, card)
+    by_path["cumulus2d_1_rank_in_step"] = timed(
+        "6c", phase_one_rank_in_step, dev, card)
     validation = timed("7", phase_validation, dev, card)
     timed("8", phase_bench, dev)
     timed("9", phase_graphs_vs_eager, dev, card)
     paths.update(timed("10", phase_oracle, dev, card))
+    timed("11", phase_cli, dev, card)
     records[0]["launches_by_path"] = by_path
     paths.update({f"validation_{k}": v for k, v in validation.items()})
     for name, counts in paths.items():

@@ -16,14 +16,17 @@ runs ``simulate_sharded`` and gathers the result on rank 0, which writes
 it back.  The devices and the backend are chosen in the parent and passed
 to every rank: with one card every rank runs on ``cuda:0`` under gloo,
 its halo slabs staged through the host (the ranks' processes time-slice
-the card); with a card per rank, NCCL.  On a card each rank replays a
-CUDA graph of its step, the exchange between two replays
-(``run_sharded(..., graphs=False)``: the eager loop).
+the card), and exchanges between two steps; with a card per rank, NCCL,
+whose exchange is the first thing of the step (``mesh.exchange_in_step``).
+On a card each rank replays a CUDA graph of its step, which holds the
+exchange wherever the step does (``run_sharded(..., graphs=False)``: the
+eager loop).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import socket
 import sys
@@ -43,8 +46,9 @@ from ..micro import cuda_build
 from ..micro.solver import device_tables
 from ..tables.builders import Tables
 from ..tables.cache import get_tables
-from .mesh import (PPT_NAMES, column_block, gather_state, halo_exchange_x,
-                   make_group, shard_state, simulate_sharded)
+from .mesh import (PPT_NAMES, column_block, exchange_in_step, gather_state,
+                   halo_exchange_x, make_group, shard_state,
+                   simulate_sharded)
 
 
 class ShardedRun(NamedTuple):
@@ -53,9 +57,10 @@ class ShardedRun(NamedTuple):
     fields: dict      # KidState field -> (nx, nz)
     ppt: dict         # ppt_rain, ... -> (n_steps, nx)
     profiles: dict    # stream name -> (n_steps, nx, nz)
-    ranks: list       # per rank: seconds, ms/step, exchange calls,
-    #                   seconds and share, capture ms, kernel launches,
-    #                   peak device bytes (warm-up and capture included)
+    ranks: list       # per rank: seconds, ms/step, the exchange's
+    #                   placement, calls, seconds and share, capture ms,
+    #                   kernel launches, peak device bytes (warm-up and
+    #                   capture included), the profiled window's numbers
 
 
 def default_layout(n_ranks: int, device="cuda") -> tuple:
@@ -86,18 +91,58 @@ def _case_spec(case) -> tuple:
     return case.name, changed
 
 
+def profiled_window(run, n_steps: int, device) -> dict:
+    """``torch.profiler`` over ``run()``, ``n_steps`` steps: the device
+    time of every kernel a step (``device_ms``), that of the NCCL kernels
+    (``exchange_device_ms``) and its share of ``device_ms``, the NCCL
+    kernels a step and the host calls of a halo exchange a step (its
+    ``record_function`` span, which a replay of a graph that holds the
+    exchange does not enter)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    device_us = nccl_us = nccl_kernels = host_calls = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.self_device_time_total
+            if "nccl" in e.key.lower():
+                nccl_us += e.self_device_time_total
+                nccl_kernels += e.count
+        elif e.key == "halo_exchange":
+            host_calls += e.count
+    return dict(device_ms=device_us / 1e3 / n_steps,
+                exchange_device_ms=nccl_us / 1e3 / n_steps,
+                exchange_device_share=nccl_us / device_us if device_us
+                else None,
+                nccl_kernels=nccl_kernels / n_steps,
+                host_exchange_calls=host_calls / n_steps)
+
+
 def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
                n_steps, istep0, profile_diags, warmup_steps, graphs,
-               threads):
+               profile_steps, threads):
     """One rank: its block of the state from ``run_dir``, optional warm-up
     steps (discarded; a graphed rank captures its step there), then the
     run, timed on the host clock with the kernels' launch counts and the
-    exchange counters set to 0 just before; rank 0 writes the gathered
-    result and every rank's numbers into ``run_dir``.  ``capture_ms``:
-    the host time of the rank's capture (warm-up step and capture), None
-    if it ran eagerly; ``peak_bytes``: the most device memory allocated
-    in the warm-up and the run (a graph's pool is allocated at its
-    capture; its replays allocate nothing)."""
+    exchange counters set to 0 just before, then ``profile_steps`` more
+    steps from its end under the profiler (``profiled_window``, entered
+    together after a barrier); rank 0 writes the gathered result and
+    every rank's numbers into ``run_dir``.  ``placement``: "step" where
+    the step holds the exchange, else "split"; ``exchange_share``: the
+    host clock of the exchange's host calls over the run's (0 for a
+    graph that holds the exchange, whose replays make none: the profiled
+    window's ``exchange_device_share`` reads that exchange);
+    ``capture_ms``: the host time of the rank's capture (warm-up step and
+    capture), None if it ran eagerly; ``peak_bytes``: the most device
+    memory allocated in the warm-up and the run (a graph's pool is
+    allocated at its capture; its replays allocate nothing).  Before the
+    group goes, the captured steps go: one that holds NCCL sends and
+    receives keeps the communicator in use."""
     torch.set_num_threads(threads)
     run_dir = Path(run_dir)
     name, changed = case_spec
@@ -128,18 +173,28 @@ def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
-        captured = BLOCKS.get(case, st.qv.dtype, st.qv.device,
-                              *column_block(case.nx, rank, n)).captured
+        block = BLOCKS.get(case, st.qv.dtype, st.qv.device,
+                           *column_block(case.nx, rank, n))
         stats = dict(
             rank=rank, device=str(dev), seconds=seconds,
             ms_per_step=seconds * 1e3 / max(n_steps, 1),
+            placement="step" if exchange_in_step(group, dev) else "split",
             exchange_calls=halo_exchange_x.calls,
             exchange_seconds=halo_exchange_x.seconds,
             exchange_share=halo_exchange_x.seconds / seconds,
-            capture_ms=captured.ms if captured else None,
+            capture_ms=block.captured.ms if block.captured else None,
             launches=cuda_build.launch_counts(),
             peak_bytes=(torch.cuda.max_memory_allocated(dev)
                         if dev.type == "cuda" else None))
+        if profile_steps:
+            # the ranks enter the window together: a rank's NCCL kernels
+            # would otherwise also wait for the others to arrive
+            dist.barrier(group)
+            stats["profile"] = profiled_window(
+                lambda: simulate_sharded(final, tables, case, profile_steps,
+                                         group, profile_diags,
+                                         istep0 + n_steps, dev, graphs),
+                profile_steps, dev)
         gathered = gather_state(final, streams, group)
         every = [None] * n
         dist.all_gather_object(every, stats, group=group)
@@ -149,6 +204,11 @@ def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
                      **{f"profile/{k}": v for k, v in profiles.items()})
             (run_dir / "ranks.json").write_text(json.dumps(every))
     finally:
+        block = None            # the captured steps go before the group
+        BLOCKS.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         dist.destroy_process_group()
 
 
@@ -165,7 +225,7 @@ def _host(a) -> np.ndarray:
 def run_sharded(case, n_ranks: int, n_steps: int, dtype=torch.float64,
                 devices=None, backend=None, istep0: int = 0, state0=None,
                 profile_diags=False, warmup_steps: int = 0,
-                graphs: bool = True) -> ShardedRun:
+                graphs: bool = True, profile_steps: int = 0) -> ShardedRun:
     """``n_steps`` of ``case`` from ``state0`` (default: the initial
     sounding in ``dtype``) on ``n_ranks`` spawned ranks; returns rank 0's
     gathered ``ShardedRun``.  ``devices`` (one per rank) and ``backend``
@@ -174,7 +234,8 @@ def run_sharded(case, n_ranks: int, n_steps: int, dtype=torch.float64,
     steps run first on every rank and are discarded, so that the timed
     run (``ShardedRun.ranks``) does not hold first-call costs (the
     capture among them).  ``graphs``: as ``simulate_sharded``'s, on every
-    rank."""
+    rank.  ``profile_steps`` more steps, if any, run on every rank under
+    the profiler (``ShardedRun.ranks[r]["profile"]``)."""
     layout = default_layout(n_ranks) if devices is None else None
     devices = layout[0] if devices is None else list(devices)
     backend = backend or (layout[1] if layout else "gloo")
@@ -197,7 +258,7 @@ def run_sharded(case, n_ranks: int, n_steps: int, dtype=torch.float64,
             _rank_main, nprocs=n_ranks, join=True, args=(
                 run_dir, devices, backend,
                 f"tcp://127.0.0.1:{_free_port()}", spec, n_steps, istep0,
-                profile_diags, warmup_steps, graphs,
+                profile_diags, warmup_steps, graphs, profile_steps,
                 max(1, torch.get_num_threads() // n_ranks)))
         with np.load(Path(run_dir) / "result.npz") as z:
             out = {k: z[k] for k in z.files}

@@ -22,10 +22,11 @@ replay a step; on the CPU, and on a card with ``graphs=False``, the same
 step runs eagerly.  ``BLOCKS`` keeps, for each case and column block,
 the flow patterns, built once, and the step last captured on them, keyed
 on what the reference's ``jit`` makes static.  A sharded run
-(``dist/mesh.py``) exchanges its halo on the host between two steps, into
-ghost buffers that the step reads (the reference's ``shard_map`` puts the
-exchange inside its compiled program; a CUDA graph cannot hold a
-host-staged collective).
+(``dist/mesh.py``) exchanges its halo as the first op of the step, so
+that one replay is one whole step, as the reference's ``shard_map`` holds
+its exchange inside its compiled program; only an exchange staged through
+the host (gloo with CUDA tensors: a CUDA graph cannot hold it) runs on the
+host between two steps, into ghost buffers that the step reads.
 """
 from __future__ import annotations
 
@@ -293,16 +294,20 @@ def wrap_x(q):
 class StepLoop:
     """The time loop's device buffers and the step on them.
 
-    ``advance`` takes one step from ``state``: it reads m(t) from ``m_buf``
-    at the device ``counter``, writes the step's precip and profiles into
-    the chunk buffers ``ppt`` and ``profiles`` at the counter and adds one
-    to the counter; it reads no host value.  ``run`` takes steps eagerly,
-    each new state replacing ``state``; ``step_in_place`` copies the new
-    state into ``state`` instead, so that a CUDA graph can capture it and
-    its replays chain with no host work between them."""
+    ``advance`` takes one step from ``state``: it runs ``exchange``, the
+    halo exchange a sharded step holds (``mesh.StepExchange``), if any,
+    on ``state``, reads m(t) from ``m_buf`` at the device ``counter``,
+    writes the step's precip and profiles into the chunk buffers ``ppt``
+    and ``profiles`` at the counter and adds one to the counter; it reads
+    no host value.  ``run`` takes steps eagerly, each new state replacing
+    ``state``; ``step_in_place`` copies the new state into ``state``
+    instead, so that a CUDA graph can capture it and its replays chain
+    with no host work between them."""
 
-    def __init__(self, step, shape: tuple, dtype, device, names: tuple):
+    def __init__(self, step, shape: tuple, dtype, device, names: tuple,
+                 exchange=None):
         self.step = step
+        self.exchange = exchange
         self.state = None
         self.m_buf = torch.zeros(CHUNK_STEPS, dtype=dtype, device=device)
         self.counter = torch.zeros(1, dtype=torch.long, device=device)
@@ -322,6 +327,8 @@ class StepLoop:
 
     def advance(self) -> KidState:
         """One step from ``state``; returns the new state."""
+        if self.exchange is not None:
+            self.exchange(self.state)
         m = self.m_buf.index_select(0, self.counter).reshape(())
         new, ppt, profs = self.step(self.state, m)
         self.ppt.index_copy_(0, self.counter, ppt[None])
@@ -334,13 +341,15 @@ class StepLoop:
         for buf, t in zip(self.state, self.advance()):
             buf.copy_(t)
 
-    def run(self, n: int, exchange=None):
-        """``n`` steps, eagerly; ``exchange(state)``, if given, runs before
-        each."""
+    def run(self, n: int, between=None):
+        """``n`` steps, eagerly; ``between(state)``, if given, runs before
+        each, outside the step."""
         for _ in range(n):
-            if exchange is not None:
-                exchange(self.state)
+            if between is not None:
+                between(self.state)
             self.state = self.advance()
+        if self.exchange is not None:
+            self.exchange.count(n)
 
 
 class CapturedStep:
@@ -355,28 +364,36 @@ class CapturedStep:
     beyond its ``Block`` (see ``run_steps``); ``tables`` are kept so that
     their identity in the key stays theirs.  ``ms``: the host time of the
     warm-up and the capture (the graph's capture starts with a device
-    synchronize, so the warm-up is in it)."""
+    synchronize, so the warm-up is in it).  A step that holds a halo
+    exchange exchanges in the warm-up, on every rank in the same order,
+    and is captured in thread-local mode: ProcessGroupNCCL's watchdog
+    thread queries CUDA events, which a global-mode capture forbids to
+    every thread."""
 
     def __init__(self, loop: StepLoop, state0: KidState, key, tables):
         t0 = time.perf_counter()
         self.loop, self.key, self.tables = loop, key, tables
         loop.state = KidState(*[t.clone() for t in state0])
         self.graph, self.launches, _ = capture(
-            loop.advance, loop.step_in_place, loop.m_buf.device)
+            loop.advance, loop.step_in_place, loop.m_buf.device,
+            "global" if loop.exchange is None else "thread_local")
         self.ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, state0: KidState):
         for buf, t in zip(self.loop.state, state0):
             buf.copy_(t)
 
-    def run(self, n: int, exchange=None):
+    def run(self, n: int, between=None):
         """``n`` steps: ``n`` replays on the current stream, each after
-        ``exchange(state)`` if given (on the host, between two replays)."""
+        ``between(state)`` if given (on the host, between two replays).
+        Adds the launches, and the exchanges, of ``n`` replays."""
         for _ in range(n):
-            if exchange is not None:
-                exchange(self.loop.state)
+            if between is not None:
+                between(self.loop.state)
             self.graph.replay()
         cuda_build.add_launches(self.launches, n)
+        if self.loop.exchange is not None:
+            self.loop.exchange.count(n)
 
 
 class Block:
@@ -437,23 +454,27 @@ def simulate(state0: KidState, tables, case: Case, n_steps: int,
 
 def run_steps(state0: KidState, tables, case: Case, n_steps: int,
               profile_diags, istep0: int, device, block: Block, pad_x,
-              graphs: bool = True, exchange=None):
+              graphs: bool = True, exchange=None, in_step: bool = False):
     """The time loop of ``simulate`` over the columns that ``state0``
     holds, which may be a block of the case's columns: ``block`` holds
     those columns' flow (see ``BLOCKS``), and ``pad_x`` fills their ghost
     columns (see ``make_step``) with no host work.  With ``graphs`` on a
     CUDA device the step is captured on ``block`` once per (profile names,
-    fused-driver switch, ``tables``, ``pad_x``) and replayed; ``pad_x``
-    must be the same object, or an equal one, in every call on a block
-    (``wrap_x``, or the block's ``Halo.pad_x``), or each call captures
-    again.
+    fused-driver switch, ``tables``, ``pad_x``, the exchange it holds) and
+    replayed; ``pad_x`` must be the same object, or an equal one, in every
+    call on a block (``wrap_x``, or the block's ``Halo.pad_x``), or each
+    call captures again.
 
     ``exchange(state)``, if given, fills the ghost buffers that ``pad_x``
-    reads from the loop's current state, on the host and outside the
-    step (a sharded run's halo exchange): once for ``state0`` before
-    anything else, so that a capture's warm-up reads filled ghosts and no
-    collective runs inside the warm-up or the capture, then before every
-    later step; one call a step in all (one for a call of no steps)."""
+    reads from the loop's current state (a sharded run's halo exchange),
+    once a step.  ``in_step`` says where: as the step's first op
+    (``StepLoop.advance``), so that a capture holds it and one replay is
+    one whole step; ``exchange.count(n)`` then counts ``n`` steps'
+    exchanges.  Otherwise on the host, outside the step (an exchange that
+    no graph can hold): once for ``state0`` before anything else, so that
+    a capture's warm-up reads filled ghosts and no collective runs inside
+    the warm-up or the capture, then before every later step (one call
+    for a call of no steps)."""
     dev = resolve_device(device)
     for t in state0:
         check_on(t, dev)
@@ -464,17 +485,19 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
         raise ValueError(f"flow rows {tuple(fl.w_pat.shape)} do not fit "
                          f"the state's {shape}")
     names = resolve_profile_names(profile_diags)
-    if exchange is not None:
-        exchange(state0)                  # the first step's halo
+    held = exchange if in_step else None
+    between = None if in_step else exchange
+    if between is not None:
+        between(state0)                   # the first step's halo
 
     def new_loop():
         step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
                          fl.pres2, pad_x, names)
-        return StepLoop(step, shape, dtype, dev, names)
+        return StepLoop(step, shape, dtype, dev, names, held)
 
     if graphs and dev.type in GRAPH_DEVICE_TYPES:
         key = (names, os.environ.get(FUSED_DRIVER_ENV, "0"), id(tables),
-               pad_x)
+               pad_x, held)
         captured = block.capture(key, lambda: CapturedStep(
             new_loop(), state0, key, tables))
         captured.load(state0)
@@ -489,11 +512,11 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
     for i0 in range(0, n_steps, CHUNK_STEPS):
         k = min(CHUNK_STEPS, n_steps - i0)
         loop.start_chunk(case.modulation_table(istep0 + i0, k, dtype))
-        if i0 == 0 and exchange is not None:
+        if i0 == 0 and between is not None:
             run(1)                        # its halo was exchanged above
-            run(k - 1, exchange)
+            run(k - 1, between)
         else:
-            run(k, exchange)
+            run(k, between)
         ppt[i0:i0 + k] = loop.ppt[:k]
         for n, out in profiles.items():
             out[i0:i0 + k] = loop.profiles[n][:k]

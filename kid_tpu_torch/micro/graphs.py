@@ -29,12 +29,14 @@ GRAPH_DEVICE_TYPES = ("cuda",)
 GRAPH_CACHE_SIZE = 8
 
 
-def capture(warm_up, record, device):
+def capture(warm_up, record, device, error_mode: str = "global"):
     """Load the kernel libraries, run ``warm_up()`` once on a side stream
     (its results and its launches are thrown away: it makes every cached
     device constant and loads every torch kernel before the capture), then
-    capture ``record()`` as a CUDA graph.  Returns (graph, the kernel
-    launches of one replay, ``record()``'s result: the graph's outputs)."""
+    capture ``record()`` as a CUDA graph in ``error_mode`` (the
+    ``capture_error_mode`` of ``torch.cuda.graph``).  Returns (graph, the
+    kernel launches of one replay, ``record()``'s result: the graph's
+    outputs)."""
     cuda_build.build()
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -44,7 +46,7 @@ def capture(warm_up, record, device):
     current.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     result = []
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=error_mode):
         launches = cuda_build.take_launches(
             lambda: result.append(record()))
     return graph, launches, result[0]

@@ -12,9 +12,13 @@ package's ``simulate`` at the ``test_torch_solver.assert_equiv`` model
 ``simulate`` and two ranks (``run_sharded``, the counterpart of
 ``tests/test_multiproc.py``); a CUDA request without a card raises.  The
 split loop (the halo exchanged on the host into ghost buffers before each
-step) on 2 and 4 ranks, graphed through a stand-in capture and eager,
-equals ``simulate`` bit for bit in the final state and every stream,
-across a chunk boundary from step 150.
+step) and the loop whose step holds the exchange (``Halo.swap``, the
+placement of NCCL and of the CPU) on 2 and 4 ranks, graphed through a
+stand-in capture and eager, each equal ``simulate`` bit for bit in the
+final state and every stream, across a chunk boundary from step 150 (so
+each other's); on 2 and 4 ranks the in-step loop matches the JAX
+package's ``simulate_sharded`` on as many shards at the ``assert_equiv``
+model.
 """
 from __future__ import annotations
 
@@ -182,12 +186,15 @@ def test_simulate_sharded_matches_jax_simulate(name):
                                    rtol=1e-8, atol=1e-20, err_msg=k)
 
 
-def _split_worker(rank, n, init, out, name):
-    """``simulate_sharded`` on this rank's block of the seeded state,
-    through the graphed loop (the stand-in capture of the cache tests,
-    which replays eagerly) and then the eager loop, every stream."""
+def _placement_worker(rank, n, init, out, name, placement):
+    """``simulate_sharded`` on this rank's block of the seeded state, the
+    exchange forced to ``placement`` ("split": on the host between two
+    steps; "step": inside the step), through the graphed loop (the
+    stand-in capture of the cache tests, which replays eagerly) and then
+    the eager loop, every stream."""
     from test_torch_graph_loop import EagerCapture, _seeded, _tables
     M.TIMEOUT = TEST_TIMEOUT
+    M.exchange_in_step = lambda group, device: placement == "step"
     tloop.GRAPH_DEVICE_TYPES = ("cuda", "cpu")
     tloop.CapturedStep = EagerCapture
     group = M.make_group("cpu", "gloo", init, rank, n)
@@ -213,9 +220,10 @@ def _split_worker(rank, n, init, out, name):
         torch.distributed.destroy_process_group()
 
 
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("name", list(SHARDED))
-def test_split_sharded_loop_equals_simulate_bitwise(name, n):
+def _check_placement(name, n, placement):
+    """The graphed and the eager run on ``n`` ranks with the exchange in
+    ``placement`` equal ``simulate`` bit for bit, with one exchange a step
+    on every rank and one capture."""
     from test_torch_graph_loop import _seeded, _tables
     case = _sized(name)
     final, streams = tloop.simulate(_seeded(case), _tables(case), case,
@@ -225,7 +233,7 @@ def test_split_sharded_loop_equals_simulate_bitwise(name, n):
             **{k: getattr(streams, k) for k in PPT},
             **{f"profile/{k}": v for k, v in streams.profiles.items()}}
     assert len(want) == 12 + 4 + len(tloop.ALL_PROFILE_NAMES)
-    got = _spawn(_split_worker, n, name)
+    got = _spawn(_placement_worker, n, name, placement)
     for mode in ("graphed", "eager"):
         for k, v in want.items():
             axis = 0 if k in KidState._fields else 1   # the column axis
@@ -236,6 +244,54 @@ def test_split_sharded_loop_equals_simulate_bitwise(name, n):
         assert [int(g[f"{mode}/calls"]) for g in got] == [SPLIT_STEPS] * n
     assert [int(g["captures"]) for g in got] == [1] * n
     assert float(streams.ppt_rain.abs().sum()) > 0.0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_split_sharded_loop_equals_simulate_bitwise(name, n):
+    _check_placement(name, n, "split")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_in_step_sharded_loop_equals_simulate_bitwise(name, n):
+    # the exchange inside the step: simulate's bits, as the split's are
+    _check_placement(name, n, "step")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_in_step_sharded_matches_jax_simulate_sharded(n):
+    # the placement the CPU takes, against the reference's shard_map with
+    # its ppermute inside the compiled step, on as many shards
+    import jax.numpy as jnp
+
+    from kid_tpu.dist.mesh import make_mesh
+    from kid_tpu.dist.mesh import simulate_sharded as j_simulate_sharded
+    from kid_tpu.driver import cases as jcases
+    from kid_tpu.driver.loop import initial_state as j_initial_state
+    from kid_tpu.micro.solver import device_tables as j_device_tables
+    from kid_tpu.tables.cache import get_tables as j_get_tables
+    from test_torch_solver import assert_equiv
+
+    nx, nz, steps = SHARDED["cumulus2d"]
+    jcase = dataclasses.replace(jcases.CUMULUS2D, nx=nx, nz=nz)
+    jtabs = j_device_tables(j_get_tables(iiwarm=True), jnp.float64)
+    wst, wout = j_simulate_sharded(j_initial_state(jcase, jnp.float64),
+                                   jtabs, jcase, steps, make_mesh(n))
+    got = (_runs("cumulus2d")[2] if n == N_RANKS else
+           L.run_sharded(_sized("cumulus2d"), n, steps, torch.float64,
+                         devices=["cpu"] * n, profile_steps=2))
+    assert [r["placement"] for r in got.ranks] == ["step"] * n
+    assert all(r["exchange_share"] > 0.0 for r in got.ranks)
+    if n != N_RANKS:    # the eager CPU step calls its exchange once a step
+        assert [(r["profile"]["host_exchange_calls"],
+                 r["profile"]["nccl_kernels"]) for r in got.ranks] == [
+            (1.0, 0.0)] * n
+    assert_equiv(got.fields, {f: np.asarray(getattr(wst, f))
+                              for f in KidState._fields})
+    for k in PPT:
+        np.testing.assert_allclose(got.ppt[k], np.asarray(getattr(wout, k)),
+                                   rtol=1e-8, atol=1e-20, err_msg=k)
 
 
 def test_widened_1d_case_has_no_x_flux():

@@ -14,7 +14,8 @@ the streams into chunk buffers (``driver/loop.py::StepLoop``).  Here:
     copy between host and device (the part of a capture that can be
     checked without a card), after the warm-up step the loop runs before
     capturing; so does a sharded rank's step, whose ghost columns come
-    from its ``Halo``;
+    from its ``Halo``, filled outside the step or by the step itself
+    (``Halo.swap``, its P2P stubbed by a local wrap);
   * the cache of column blocks, with a stand-in capture that replays
     eagerly: a block's capture keys on dtype, tables, profile names and
     the fused switch and is reused otherwise; the cache is bounded; a
@@ -22,10 +23,12 @@ the streams into chunk buffers (``driver/loop.py::StepLoop``).  Here:
     a failed capture raises; a second call builds no flow pattern; the
     eager loop copies no state back; the sharded path asks for the graphed
     loop and runs eagerly on the CPU;
-  * the sharded loop on one rank: the halo exchange runs once a step and
-    never inside the step, graphed and eager, and the result is
-    ``simulate``'s; a second call on the same block captures nothing
-    new.
+  * the sharded loop on one rank: the split halo exchange runs once a
+    step and never inside the step, the in-step one once a step and only
+    inside it, no host exchange between two replays, graphed and eager,
+    one exchange and one ``fused_step`` counted a replay, and the result
+    is ``simulate``'s; a second call on the same block captures nothing
+    new; the placement follows the group's backend and the device.
 """
 from __future__ import annotations
 
@@ -256,11 +259,13 @@ def _stub_kernels(monkeypatch, calls):
     monkeypatch.setattr(FK, "fused_kid_step", fused_kid_step)
 
 
-@pytest.mark.parametrize("name", list(PATHS) + ["sharded"])
+@pytest.mark.parametrize("name", list(PATHS) + ["sharded",
+                                                "sharded_in_step"])
 def test_step_makes_no_host_sync(name, monkeypatch):
     # "sharded": rank 0's block of cumulus2d on 2 ranks, its ghost columns
-    # read from a Halo
-    sharded = name == "sharded"
+    # read from a Halo; "sharded_in_step": the same, the step filling them
+    # first (Halo.swap), its sends and receives stubbed by a local wrap
+    sharded = name.startswith("sharded")
     case = _path("cumulus2d" if sharded else name, monkeypatch)
     calls = []
     _stub_kernels(monkeypatch, calls)
@@ -268,12 +273,19 @@ def test_step_makes_no_host_sync(name, monkeypatch):
     tables = S.DeviceTables(*[t.to(dev) for t in _tables(case, dtype)])
     names = L.ALL_PROFILE_NAMES
     lo, hi = M.column_block(case.nx, 0, 2) if sharded else (0, case.nx)
-    pad_x = M.Halo(case, dtype, dev).pad_x if sharded else L.wrap_x
+    halo = M.Halo(case, dtype, dev)
+    pad_x = halo.pad_x if sharded else L.wrap_x
+    exchange = None
+    if name == "sharded_in_step":
+        _world(monkeypatch, 2, 0)
+        monkeypatch.setattr(M, "_ring", lambda send, recv, group:
+                            calls.append("ring") or recv.copy_(send))
+        exchange = M.StepExchange(halo, None)
     fl = L.build_flow(case, dtype, dev, lo, hi)
     step = L.make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
                        fl.pres2, pad_x, names)
     shape = (hi - lo, case.nz)
-    loop = L.StepLoop(step, shape, dtype, dev, names)
+    loop = L.StepLoop(step, shape, dtype, dev, names, exchange)
     loop.state = KidState(*[t[lo:hi]
                             for t in L.initial_state(case, dtype, dev)])
     loop.start_chunk(case.modulation_table(ISTEP0, L.CHUNK_STEPS, dtype))
@@ -284,7 +296,8 @@ def test_step_makes_no_host_sync(name, monkeypatch):
     want = {"mixed1": ["fused_step"], "warm1_recon": ["fused_step"],
             "cumulus2d": ["fused_step"], "fused": ["fused_kid_step"],
             "aerosol1d": ["fused_rates", "fused_post"],
-            "sharded": ["fused_step"]}[name]
+            "sharded": ["fused_step"],
+            "sharded_in_step": ["ring", "fused_step"]}[name]
     assert calls[n_warm:] == want
     assert loop.profiles["prr_wau"].shape == (L.CHUNK_STEPS,) + shape
 
@@ -483,10 +496,11 @@ def test_sharded_path_takes_the_eager_loop(monkeypatch):
         for kwargs in ({}, {"graphs": False}):
             assert M.simulate_sharded(local, None, case, 3, None,
                                       device="cpu", **kwargs) == "ran"
-    (*_, block, pad_x, graphs, exchange), second = seen
+    (*_, block, pad_x, graphs, exchange, in_step), second = seen
     assert graphs is True and second[9] is False
     assert pad_x == block.halo.pad_x == second[8]
-    assert exchange.func == block.halo.exchange
+    # on the CPU the step holds the exchange
+    assert in_step is True and exchange == M.StepExchange(block.halo, None)
     grid = case.grid()
     np.testing.assert_array_equal(block.flow.w_pat.numpy(),
                                   case.rhow_pattern(grid)[32:64])
@@ -502,12 +516,10 @@ def test_sharded_path_takes_the_eager_loop(monkeypatch):
     M.simulate_sharded(st0, tables, case, 2, None, device="cpu")
 
 
-@pytest.mark.parametrize("graphs", [True, False])
-def test_sharded_exchange_once_a_step_outside_the_step(graphs, eager_graphs,
-                                                       monkeypatch):
-    _world(monkeypatch)
-    inside, states = [], []
-    advance, exchange = L.StepLoop.advance, M.Halo.exchange
+def _watch_steps(monkeypatch):
+    """``StepLoop.advance`` watched: returns the list of the loops whose
+    step is running."""
+    inside, advance = [], L.StepLoop.advance
 
     def watched_advance(self):
         inside.append(self)
@@ -516,12 +528,24 @@ def test_sharded_exchange_once_a_step_outside_the_step(graphs, eager_graphs,
         finally:
             inside.pop()
 
+    monkeypatch.setattr(L.StepLoop, "advance", watched_advance)
+    return inside
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_sharded_exchange_once_a_step_outside_the_step(graphs, eager_graphs,
+                                                       monkeypatch):
+    # the split placement, which gloo takes with CUDA tensors
+    _world(monkeypatch)
+    monkeypatch.setattr(M, "exchange_in_step", lambda group, device: False)
+    inside = _watch_steps(monkeypatch)
+    states, exchange = [], M.Halo.exchange
+
     def watched_exchange(self, state, group):
         assert not inside, "the halo exchange ran inside the step"
         states.append(state)
         return exchange(self, state, group)
 
-    monkeypatch.setattr(L.StepLoop, "advance", watched_advance)
     monkeypatch.setattr(M.Halo, "exchange", watched_exchange)
     case = dataclasses.replace(tcases.CUMULUS2D, nx=16)
     tables, st0 = _tables(case), _seeded(case)
@@ -541,6 +565,69 @@ def test_sharded_exchange_once_a_step_outside_the_step(graphs, eager_graphs,
                       device="cpu", graphs=False)
     _assert_same(got, want[0], torch.stack(
         [getattr(want[1], k) for k in PPT], 1), want[1].profiles)
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_sharded_exchange_once_a_step_inside_the_step(graphs, eager_graphs,
+                                                      monkeypatch):
+    # one rank: the step holds the exchange (its wrap is local)
+    _world(monkeypatch)
+    inside = _watch_steps(monkeypatch)
+    swapped, swap = [], M.Halo.swap
+
+    def watched_swap(self, state, group):
+        assert inside, "the in-step exchange ran outside the step"
+        swapped.append(state)
+        return swap(self, state, group)
+
+    def host_exchange(*args):
+        raise AssertionError("a host exchange ran")
+
+    monkeypatch.setattr(M.Halo, "swap", watched_swap)
+    monkeypatch.setattr(M.Halo, "exchange", host_exchange)
+    case = dataclasses.replace(tcases.CUMULUS2D, nx=16)
+    tables, st0 = _tables(case), _seeded(case)
+    M.halo_exchange_x.calls = 0
+    cuda_build.reset_launch_counts()
+    try:
+        got = M.simulate_sharded(st0, tables, case, N_STEPS, None, NAMES,
+                                 ISTEP0, device="cpu", graphs=graphs)
+        counts = cuda_build.launch_counts()
+    finally:
+        cuda_build.reset_launch_counts()
+    # one exchange counted a step; graphed, one a replay (the stand-in
+    # capture replays eagerly, so its swap runs inside each replay, where a
+    # CUDA graph's replay runs no Python; its warm-up swaps once and counts
+    # nothing), and one fused_step launch a replay
+    assert M.halo_exchange_x.calls == N_STEPS
+    assert len(swapped) == N_STEPS + (1 if graphs else 0)
+    assert len(eager_graphs) == (1 if graphs else 0)
+    if graphs:
+        assert counts == {k: N_STEPS if k == "fused_step" else 0
+                          for k in counts}
+        loop = L.BLOCKS.get(case, torch.float64, st0.qv.device, 0,
+                            case.nx).captured.loop
+        assert all(st is loop.state for st in swapped)
+    else:
+        assert swapped[0] is st0
+    want = L.simulate(st0, tables, case, N_STEPS, NAMES, ISTEP0,
+                      device="cpu", graphs=False)
+    _assert_same(got, want[0], torch.stack(
+        [getattr(want[1], k) for k in PPT], 1), want[1].profiles)
+
+
+@pytest.mark.parametrize("backend, device, n, in_step", [
+    ("gloo", "cuda:0", 2, False), ("gloo", "cuda:0", 4, False),
+    ("gloo", "cuda:0", 1, True), ("nccl", "cuda:1", 2, True),
+    ("nccl", "cuda:0", 4, True), ("gloo", "cpu", 2, True),
+    ("gloo", "cpu", 1, True)])
+def test_exchange_placement_follows_group_and_device(backend, device, n,
+                                                     in_step, monkeypatch):
+    # only gloo with CUDA tensors on several ranks stages the slabs through
+    # the host, outside the step
+    _world(monkeypatch, n)
+    monkeypatch.setattr(M.dist, "get_backend", lambda group: backend)
+    assert M.exchange_in_step(None, torch.device(device)) is in_step
 
 
 def test_second_sharded_call_captures_nothing_new(eager_graphs, monkeypatch):

@@ -172,18 +172,31 @@ def test_nccl_smoke_imports_neither_jax_nor_reference_package(monkeypatch):
 def test_nccl_smoke_names_every_fault():
     import nccl_smoke as N
 
-    def run(theta, rain, calls, launches):
+    def run(theta, rain, calls, launches, placement="step", seconds=0.0,
+            nccl=1.0, host=0.0):
         return SimpleNamespace(
             fields={"theta": np.array([theta])},
             ppt={"ppt_rain": np.array([rain])},
-            ranks=[{"rank": 0, "exchange_calls": calls,
-                    "launches": {"fused_step": launches, "fused_post": 0}}])
+            ranks=[{"rank": 0, "placement": placement,
+                    "exchange_calls": calls, "exchange_seconds": seconds,
+                    "launches": {"fused_step": launches, "fused_post": 0},
+                    "profile": {"nccl_kernels": nccl,
+                                "host_exchange_calls": host}}])
 
     one = run(1.0, 2.0, 3, 3)
-    assert N.faults(one, run(1.0, 2.0, 3, 3), 3) == []
-    bad = N.faults(one, run(1.5, 2.5, 2, 3), 3)
+    assert N.faults(one, run(1.0, 2.0, 3, 3), 3, True) == []
+    assert N.faults(one, run(1.0, 2.0, 3, 3, seconds=0.1, host=1.0), 3,
+                    False) == []
+    bad = N.faults(one, run(1.5, 2.5, 2, 3), 3, True)
     assert bad[:2] == ["theta", "ppt_rain"] and "2 exchanges" in bad[2]
-    assert len(N.faults(one, run(1.0, 2.0, 3, 4), 3)) == 1
+    assert len(N.faults(one, run(1.0, 2.0, 3, 4), 3, True)) == 1
+    # the exchange outside the step, host time in a graphed run's exchange,
+    # no NCCL kernel a profiled step, a host call of the exchange between
+    # two replays, none in an eager step
+    for graphs, kw in ((True, {"placement": "split"}),
+                       (True, {"seconds": 0.1}), (True, {"nccl": 0.0}),
+                       (True, {"host": 1.0}), (False, {"host": 0.0})):
+        assert len(N.faults(one, run(1.0, 2.0, 3, 3, **kw), 3, graphs)) == 1
 
 
 def test_kernel_budget_imports_neither_jax_nor_reference_package():
