@@ -133,7 +133,18 @@ on failure:
      ``--out`` (NetCDF) and ``--checkpoint-dir``, then ``--resume`` to
      100: the NetCDF file byte for byte the one ``registry_from_run``
      writes from ``simulate``'s streams, the resumed state bit for bit
-     ``simulate``'s over 100 steps; both runs' wall seconds.
+     ``simulate``'s over 100 steps; both runs' wall seconds;
+ 12. the port's measuring scripts: ``scaling``'s one-card rows
+     (cumulus2d tiled to 32768 x 60, 20 timed steps in one process and on
+     one rank whose graph holds its exchange, the same bits); one
+     white-noise member of ``validation.chaos`` on mixed1 for 200 steps,
+     its noisy step graphed and eager, the same bits, through
+     ``fused_step`` and again through ``fused_kid_step`` (the fused
+     switch); ``validation.cases --record`` and ``validation.chaos
+     --record`` into one temporary record, its blocks checked.
+
+Phase 9 also lists the 2-D cells' kernels by name, eager against graphed
+(ROADMAP Queue 3 (c)).
 
 Phases 3-3c, 4 (its kernel path), 5, 6, 7, 8, 10 and 11 run
 ``simulate``'s and ``simulate_sharded``'s default: a CUDA graph of the
@@ -237,6 +248,12 @@ ORACLE_STEPS = 100
 ORACLE_2D = (16, 50)
 # phase 11: steps of the CLI's first run; the resumed run doubles them
 CLI_STEPS = 50
+# phase 12: steps of the chaos member; steps of the --record runs
+CHAOS_STEPS = 200
+RECORD_STEPS = 20
+# phase 9: the cells whose eager and graphed kernels are listed by name
+# (ROADMAP Queue 3 (c))
+KERNEL_DIFF_CELLS = ("cumulus2d", "orographic2d")
 
 
 def card_line() -> str:
@@ -1979,7 +1996,7 @@ def phase_graphs_vs_eager(dev, card):
                 return simulate(st0, tables, case, steps, names, istep0=i0,
                                 device=dev, graphs=graphs)
 
-            got, row = {}, {}
+            got, row, profiles = {}, {}, {}
             # each mode's result goes to the host, so that the other's
             # peak device memory does not hold it
             for mode, graphs in (("eager", False), ("graphed", True)):
@@ -2010,6 +2027,7 @@ def phase_graphs_vs_eager(dev, card):
                                 lambda: run(graphs, steps=N_PROFILED), card)
                 check_profiled_launches(f"{label} {mode}", prof,
                                         row_kernels[label])
+                profiles[mode] = prof
                 device_ms = sum(r[1] for r in prof)
                 row[mode] = dict(
                     wall_ms=wall, event_ms=e0.elapsed_time(e1) / n,
@@ -2044,12 +2062,41 @@ def phase_graphs_vs_eager(dev, card):
               + f"; the first graphed call (warm-up, capture and 1 step) "
               f"{row['first_call_ms']:.1f} ms; wall "
               f"{e['wall_ms'] / g['wall_ms']:.2f}x [{card}]", flush=True)
+        if label in KERNEL_DIFF_CELLS:
+            kernel_diff(label, profiles["eager"], profiles["graphed"], card)
         rows[label] = row
     BLOCKS.clear()
     for label in GRAPH_RANK_CELLS:
         rows[f"{label} on {N_RANKS} ranks"] = ranks_graphs_vs_eager(
             dev, card, label, wide[label])
     return rows
+
+
+def kernel_diff(label, eager, graphed, card):
+    """The kernels of two profiled windows of a cell (``device_profile``
+    rows), eager and graphed, by name: each name whose launches a step or
+    device ms a step differ, with both, and the sums of the rest."""
+    def by_name(rows):
+        out = collections.defaultdict(lambda: [0.0, 0.0])
+        for key, ms, cnt in rows:
+            out[key][0] += cnt
+            out[key][1] += ms
+        return out
+
+    a, b = by_name(eager), by_name(graphed)
+    names = sorted(set(a) | set(b), key=lambda k: -abs(a[k][1] - b[k][1]))
+    moved = [k for k in names if a[k][0] != b[k][0]
+             or abs(a[k][1] - b[k][1]) > 1e-3]
+    same = [k for k in names if k not in moved]
+    print(f"{label} kernels by name, eager against graphed ({N_PROFILED} "
+          f"steps): {len(names)} names, {len(moved)} differ in launches a "
+          f"step or by over 1 us a step; the other {len(same)} "
+          f"{sum(a[k][1] for k in same):.4f} and "
+          f"{sum(b[k][1] for k in same):.4f} ms/step [{card}]", flush=True)
+    for k in moved:
+        print(f"  eager {a[k][0]:6.1f}x {a[k][1]:8.4f} ms/step, graphed "
+              f"{b[k][0]:6.1f}x {b[k][1]:8.4f} ms/step  {k[:90]}",
+              flush=True)
 
 
 class OpNames(TorchDispatchMode):
@@ -2233,6 +2280,144 @@ def phase_oracle(dev, card):
     return paths
 
 
+def phase_records(dev, card):
+    """The port's measuring scripts on this card.  ``scaling``'s one-card
+    rows: cumulus2d tiled to ``scaling.CARD["per_rank_nx"]`` (32768)
+    columns, its 20 timed steps in one process and on one rank of
+    ``dist.launch`` (its exchange in its graph), the same bits.  One
+    white-noise member of ``validation.chaos`` on mixed1 for
+    ``CHAOS_STEPS`` steps graphed (a CUDA graph of the noisy step, fresh
+    noise each replay; its noise the same bits as the CPU's) and eager,
+    the same bits, then the same through
+    ``fused_kid_step`` (KID_TPU_TORCH_FUSED_DRIVER=1).  Then
+    ``validation.cases --record`` (mixed1, float64, ``RECORD_STEPS``
+    steps against the port's oracle twin) and ``validation.chaos
+    --record`` into one temporary record, whose blocks and provenance are
+    checked.  Returns {path: launches}."""
+    from kid_tpu_torch import scaling
+    from kid_tpu_torch.dist import launch
+    from kid_tpu_torch.driver.cases import MIXED1
+    from kid_tpu_torch.driver.loop import (BLOCKS, FUSED_DRIVER_ENV,
+                                           initial_state)
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    from kid_tpu_torch.validation import cases as V
+    from kid_tpu_torch.validation import chaos
+    paths = {}
+    size = scaling.CARD
+    nx = size["per_rank_nx"]
+    reset_counts()
+    one = scaling.one_process(nx, size["spin"], size["steps"], dev)
+    paths[f"scaling_{nx}_one_process"] = read_counts()
+    BLOCKS.clear()
+    torch.cuda.empty_cache()
+    row = scaling.sharded_row(one, nx, 1, size, launch.default_layout(1, dev))
+    (launches,) = row["launches"]
+    paths[f"scaling_{nx}_1_rank"] = launches
+    want = size["steps"]
+    if not row["bitwise_equal_to_one_process"] or launches["fused_step"] \
+            != want or row["placement"] != ["step"]:
+        raise AssertionError(f"scaling at {nx} columns on one rank: {row}")
+    prof = row["profile"][0]
+    print(f"scaling's one-card rows, cumulus2d tiled to ({nx}, 60) f32, "
+          f"{want} steps from step {size['spin']}: one process "
+          f"{one['ms_per_step']:.3f} ms/step, one rank (its exchange in its "
+          f"graph) {row['ms_per_step']:.3f} ms/step, "
+          f"{row['column_steps_per_sec']:.0f} column-steps/s, bit for bit "
+          f"the one-process run, {launches['fused_step']} fused_step "
+          f"launches; profiled: device {prof['device_ms']:.3f} ms/step, "
+          f"{prof['host_exchange_calls']:.0f} host calls of the exchange a "
+          f"step [{card}]", flush=True)
+
+    case, dtype = MIXED1, torch.float32
+    tables = device_tables(get_tables(iiwarm=False), dtype, dev)
+    st0 = initial_state(case, dtype, dev)
+    noise = chaos.CounterNoise((case.nx, case.nz), dev)
+    on_host = chaos.CounterNoise((case.nx, case.nz), "cpu")
+    for persistent in (True, False):
+        noise.set(1, persistent)
+        on_host.set(1, persistent)
+        for step in (0, 1, CHAOS_STEPS - 1):
+            noise.step.fill_(step)
+            on_host.step.fill_(step)
+            if not torch.equal(noise.draw(dtype).cpu(), on_host.draw(dtype)):
+                raise AssertionError(f"CounterNoise at step {step} "
+                                     f"(persistent={persistent}): the card "
+                                     f"and the CPU draw other values")
+    print(f"CounterNoise: the same bits on the card and the CPU, both "
+          f"classes, steps 0, 1 and {CHAOS_STEPS - 1} [{card}]", flush=True)
+    noise.set(1, False)
+    for label, kernel, fused in (("chaos_mixed1", "fused_step", "0"),
+                                 ("chaos_mixed1_fused_driver",
+                                  "fused_kid_step", "1")):
+        os.environ[FUSED_DRIVER_ENV] = fused
+        try:
+            got = {}
+            for mode, graphs in (("eager", False), ("graphed", True)):
+                reset_counts()
+                t0 = time.perf_counter()
+                got[mode] = to_host(chaos.run_member(
+                    case, tables, st0, CHAOS_STEPS, noise, graphs))
+                got[mode + "_s"] = time.perf_counter() - t0
+                counts = read_counts()
+                if counts != {k: CHAOS_STEPS * (k == kernel)
+                              for k in counts}:
+                    raise AssertionError(f"{label} {mode}: launches "
+                                         f"{counts}")
+        finally:
+            os.environ.pop(FUSED_DRIVER_ENV, None)
+        paths[label] = counts
+        n_streams = same_bits(label, got["graphed"], got["eager"])
+        plain = to_host(chaos.run_member(case, tables, st0, CHAOS_STEPS,
+                                         graphs=True))
+        moved = float((got["graphed"][0].qv.double()
+                       - plain[0].qv.double()).abs().max()
+                      / plain[0].qv.double().abs().max())
+        if not moved > 0.0:
+            raise AssertionError(f"{label}: the noise did not move qv")
+        check_finite_nonnegative(label, got["graphed"][0]._asdict())
+        print(f"chaos member (white noise, seed 1, eps {chaos.EPS:g}) of "
+              f"mixed1 f32, {CHAOS_STEPS} steps through {kernel}: graphed "
+              f"and eager the same bits in the final state and "
+              f"{n_streams} streams, {counts[kernel]} launches; qv "
+              f"{moved:.3e} from the unperturbed run; eager "
+              f"{got['eager_s']:.1f} s, graphed {got['graphed_s']:.1f} s "
+              f"(capture in it) [{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="kid_record_") as d:
+        path = Path(d) / "VALIDATION.json"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = V.main(["--cases", "mixed1", "--steps", str(RECORD_STEPS),
+                         "--dtype", "float64", "--write-finals", d,
+                         "--device", str(dev), "--record", str(path)])
+            rc_chaos = chaos.main(["mixed1", "--steps", str(RECORD_STEPS),
+                                   "--device", str(dev), "--record",
+                                   str(path)])
+        r = json.loads(path.read_text())
+        want_keys = {"fp64", "rtol", "fp64_all_pass", "chaos_envelope",
+                     "hardware", "commit", "source_sha256", "runs"}
+        env = r["chaos_envelope"]["cases"]["mixed1"]
+        if (rc, rc_chaos) != (0, 0) or not want_keys <= set(r) \
+                or not r["fp64_all_pass"] \
+                or any(env.get(kind, {}).get("members") != len(chaos.SEEDS)
+                       for kind in chaos.KINDS) \
+                or r["hardware"]["device"] != torch.cuda.get_device_name(0) \
+                or not r["hardware"]["cards"]:
+            raise AssertionError(f"--record: exit codes {rc}, {rc_chaos}; "
+                                 f"{sorted(r)}; {buf.getvalue()[-2000:]}")
+        e = r["fp64"]["mixed1"]
+        paths["record_fp64_mixed1"] = e["launches"]
+        print(f"--record: validation.cases (mixed1 f64, {RECORD_STEPS} "
+              f"steps, worst target {e['worst_target_field_rel']:.3e} "
+              f"against the twin) and validation.chaos (mixed1, "
+              f"{RECORD_STEPS} steps, 3 members of each class: white cum_ppt "
+              f"{env['white_noise']['cum_ppt_spread']:.3e}) merged into one "
+              f"record: {', '.join(sorted(r))}; hardware "
+              f"{r['hardware']['cards']} [{card}]", flush=True)
+    return paths
+
+
 def timed(phase, fn, *args):
     """``fn(*args)``, with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2277,6 +2462,7 @@ def main() -> int:
     timed("9", phase_graphs_vs_eager, dev, card)
     paths.update(timed("10", phase_oracle, dev, card))
     timed("11", phase_cli, dev, card)
+    paths.update(timed("12", phase_records, dev, card))
     records[0]["launches_by_path"] = by_path
     paths.update({f"validation_{k}": v for k, v in validation.items()})
     for name, counts in paths.items():

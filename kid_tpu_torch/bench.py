@@ -4,15 +4,16 @@ counterpart of ``bench.py`` and of ``bench_scaling_r05.py::flagship_100k``).
     python -m kid_tpu_torch.bench                 # on the card
     python -m kid_tpu_torch.bench --device cpu    # small sizes, a smoke run
 
-Prints ONE JSON line.  The primary metric drives the mixed1 case through
-the whole driver step (advection, provisional state, the table stage and
-``fused_step``) widened to ``--ncol`` identical columns (8192 on the
-card), timed over ``--steps`` steps (100) from a spun-up state.  warm1,
-warm1_recon and aerosol1d are timed the same way; then the synthetic
-mixed-phase solver batch (one ``batched_microphysics`` call a step,
-graphed on the card, and again eager) and the flagship, cumulus2d
-widened to ``--flagship-nx`` columns (131072) at its 60 levels, 150
-spin-up steps and 20 timed.
+Prints ONE JSON line (``--record PATH`` also merges it into the JSON record
+at PATH as its ``bench`` block, with where it ran). The primary metric
+drives the mixed1 case through the whole driver step (advection, provisional
+state, the table stage and ``fused_step``) widened to ``--ncol`` identical
+columns (8192 on the card), timed over ``--steps`` steps (100) from a
+spun-up state.  warm1, warm1_recon and aerosol1d are timed the same way;
+then the synthetic mixed-phase solver batch (one ``batched_microphysics``
+call a step, graphed on the card, and again eager) and the flagship,
+cumulus2d widened to ``--flagship-nx`` columns (131072) at its 60 levels,
+150 spin-up steps and 20 timed.
 
 Protocol (``bench.py:43-78``): spin-up, one warm window, then the best of
 2 timed windows that replay the warm window's steps (the flagship: one),
@@ -31,6 +32,8 @@ import time
 import numpy as np
 import torch
 
+from . import records
+from .baseline import BASELINE_COL_STEPS_PER_SEC
 from .config import MicroConfig
 from .device import resolve_device
 from .driver.cases import AEROSOL1D, CUMULUS2D, MIXED1, WARM1, WARM1_RECON
@@ -40,9 +43,6 @@ from .micro.solver import device_tables
 from .tables.cache import get_tables
 
 DTYPE = torch.float32
-# the measured single-core Fortran denominator of the reference's bench
-# (bench_baseline.py: 3x the compiled anchor), column-steps/s at nz=120
-BASELINE_COL_STEPS_PER_SEC = 1.0e4
 # card sizes; the CPU sizes are bench.py's smoke sizes
 CARD = dict(ncol=8192, spin=250, steps=100, synthetic_steps=30,
             flagship_nx=131072, flagship_spin=150, flagship_steps=20)
@@ -182,6 +182,9 @@ def main(argv=None) -> int:
     for k in CARD:
         ap.add_argument(f"--{k.replace('_', '-')}", type=int, default=None,
                         help=f"(card {CARD[k]}, CPU {CPU[k]})")
+    ap.add_argument("--record", default=None, metavar="PATH",
+                    help="also merge the line into this JSON record as its "
+                         "'bench' block")
     args = ap.parse_args(argv)
     try:
         dev = resolve_device(args.device)
@@ -203,7 +206,7 @@ def main(argv=None) -> int:
     flag = flagship(size["flagship_nx"], size["flagship_spin"],
                     size["flagship_steps"], dev)
     value = mixed["column_steps_per_sec"]
-    print(json.dumps({
+    line = {
         "metric": "column_steps_per_sec_mixed1_case_nz120",
         "value": value, "unit": "column-steps/s/card",
         "vs_baseline": value / BASELINE_COL_STEPS_PER_SEC,
@@ -218,7 +221,10 @@ def main(argv=None) -> int:
         "timed_steps": steps, "backend": dev.type,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
-        "seconds": time.perf_counter() - t0}))
+        "seconds": time.perf_counter() - t0}
+    if args.record:
+        records.merge(args.record, {"bench": line}, dev)
+    print(json.dumps(line))
     return 0
 
 

@@ -7,7 +7,10 @@
 runs a case (default cumulus2d, whole length, float64) once on one rank
 and once on ``--ranks`` ranks, and prints one JSON line saying whether the
 final fields and the rain series are the same bits; exits 1 if they are
-not, 2 if the run cannot start (e.g. no card without ``--device cpu``).
+not, 2 if the run cannot start (e.g. no card without ``--device cpu``);
+``--out PATH`` also writes that report, with the card, the layouts and
+each run's ms/step, as a JSON record (``records.write``; the port's
+``MULTIPROC_h100.json``, the counterpart of ``run_multiproc.py``'s).
 
 ``run_sharded`` does the work: the parent writes the tables and the
 initial state into a run directory once, starts one process per rank
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import records
 from ..device import resolve_device
 from ..driver.cases import CASES
 from ..driver.loop import BLOCKS, KidState, initial_state
@@ -91,18 +95,23 @@ def _case_spec(case) -> tuple:
     return case.name, changed
 
 
-def profiled_window(run, n_steps: int, device) -> dict:
+def profiled_window(run, n_steps: int, device, enter) -> dict:
     """``torch.profiler`` over ``run()``, ``n_steps`` steps: the device
     time of every kernel a step (``device_ms``), that of the NCCL kernels
     (``exchange_device_ms``) and its share of ``device_ms``, the NCCL
     kernels a step and the host calls of a halo exchange a step (its
     ``record_function`` span, which a replay of a graph that holds the
-    exchange does not enter)."""
+    exchange does not enter).  ``enter()`` runs under the profiler just
+    before ``run()``, after the profiler's own start-up (a host barrier,
+    which launches no kernel); ``entered_s``: the wall clock
+    (``time.time()``) when ``run()`` began."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
+        enter()
+        entered = time.time()
         run()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -120,29 +129,31 @@ def profiled_window(run, n_steps: int, device) -> dict:
                 exchange_device_share=nccl_us / device_us if device_us
                 else None,
                 nccl_kernels=nccl_kernels / n_steps,
-                host_exchange_calls=host_calls / n_steps)
+                host_exchange_calls=host_calls / n_steps,
+                entered_s=entered)
 
 
 def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
                n_steps, istep0, profile_diags, warmup_steps, graphs,
                profile_steps, threads):
     """One rank: its block of the state from ``run_dir``, optional warm-up
-    steps (discarded; a graphed rank captures its step there), then the
-    run, timed on the host clock with the kernels' launch counts and the
-    exchange counters set to 0 just before, then ``profile_steps`` more
-    steps from its end under the profiler (``profiled_window``, entered
-    together after a barrier); rank 0 writes the gathered result and
-    every rank's numbers into ``run_dir``.  ``placement``: "step" where
-    the step holds the exchange, else "split"; ``exchange_share``: the
-    host clock of the exchange's host calls over the run's (0 for a
-    graph that holds the exchange, whose replays make none: the profiled
-    window's ``exchange_device_share`` reads that exchange);
-    ``capture_ms``: the host time of the rank's capture (warm-up step and
-    capture), None if it ran eagerly; ``peak_bytes``: the most device
-    memory allocated in the warm-up and the run (a graph's pool is
-    allocated at its capture; its replays allocate nothing).  Before the
-    group goes, the captured steps go: one that holds NCCL sends and
-    receives keeps the communicator in use."""
+    steps (discarded; a graphed rank captures its step there), then the run,
+    timed on the host clock with the kernels' launch counts and the exchange
+    counters set to 0 just before, then ``profile_steps`` more steps from
+    its end under the profiler (``profiled_window``, opened on every rank
+    just after a barrier of a gloo group inside the profiler, so that a
+    rank's NCCL kernels do not hold its wait for the others, and the barrier
+    adds no kernel); rank 0 writes the gathered result and every rank's
+    numbers into ``run_dir``. ``placement``: "step" where the step holds the
+    exchange, else "split"; ``exchange_share``: the host clock of the
+    exchange's host calls over the run's (0 for a graph that holds the
+    exchange, whose replays make none: the profiled window's
+    ``exchange_device_share`` reads that exchange); ``capture_ms``: the host
+    time of the rank's capture (warm-up step and capture), None if it ran
+    eagerly; ``peak_bytes``: the most device memory allocated in the warm-up
+    and the run (a graph's pool is allocated at its capture; its replays
+    allocate nothing). Before the group goes, the captured steps go: one
+    that holds NCCL sends and receives keeps the communicator in use."""
     torch.set_num_threads(threads)
     run_dir = Path(run_dir)
     name, changed = case_spec
@@ -187,14 +198,13 @@ def _rank_main(rank, run_dir, devices, backend, init_method, case_spec,
             peak_bytes=(torch.cuda.max_memory_allocated(dev)
                         if dev.type == "cuda" else None))
         if profile_steps:
-            # the ranks enter the window together: a rank's NCCL kernels
-            # would otherwise also wait for the others to arrive
-            dist.barrier(group)
+            host = (group if dist.get_backend(group) == "gloo"
+                    else dist.new_group(backend="gloo"))
             stats["profile"] = profiled_window(
                 lambda: simulate_sharded(final, tables, case, profile_steps,
                                          group, profile_diags,
                                          istep0 + n_steps, dev, graphs),
-                profile_steps, dev)
+                profile_steps, dev, enter=lambda: dist.barrier(host))
         gathered = gather_state(final, streams, group)
         every = [None] * n
         dist.all_gather_object(every, stats, group=group)
@@ -294,6 +304,9 @@ def main(argv=None) -> int:
                     choices=("float32", "float64"))
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--out", default=None, metavar="PATH",
+                    help="also write the report, with where it ran, as a "
+                         "JSON record (MULTIPROC_h100.json)")
     args = ap.parse_args(argv)
     case = CASES[args.case]
     n = case.n_steps if args.steps is None else args.steps
@@ -308,12 +321,19 @@ def main(argv=None) -> int:
         return 2
     fields = compare(*runs)
     same = all(v["bitwise_equal"] for v in fields.values())
-    print(json.dumps({
+    report = {
         "case": case.name, "nx": case.nx, "nz": case.nz, "n_steps": n,
         "dtype": args.dtype, "ranks": [1, args.ranks],
-        "devices": [r["device"] for r in runs[1].ranks],
+        "layouts": [{"ranks": len(run.ranks),
+                     "devices": [r["device"] for r in run.ranks],
+                     "exchange": run.ranks[0]["placement"],
+                     "ms_per_step": max(r["ms_per_step"] for r in run.ranks)}
+                    for run in runs],
         "fields": fields, "bitwise_identical": same,
-        "seconds": round(time.perf_counter() - t0, 1)}))
+        "seconds": round(time.perf_counter() - t0, 1)}
+    if args.out:
+        records.write(args.out, report, resolve_device(args.device))
+    print(json.dumps(report))
     return 0 if same else 1
 
 

@@ -506,9 +506,23 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
         loop = new_loop()
         loop.state = state0
         run = loop.run
+    return drive(loop, run, case, n_steps, istep0, between)
+
+
+def drive(loop: StepLoop, run, case: Case, n_steps: int, istep0: int,
+          between=None):
+    """``n_steps`` steps of ``loop`` from its ``state``, chunk by chunk:
+    m(t) of a chunk's steps uploaded (``StepLoop.start_chunk``), then
+    ``run(k, between)`` (``StepLoop.run`` or ``CapturedStep.run``), and
+    the chunk's streams copied out.  ``between``, if given, runs before
+    every step but the first, whose halo the caller has filled.  Returns
+    (final KidState, StepOutputs), the caller's own."""
+    state = loop.state
+    dtype, dev = state.qv.dtype, state.qv.device
+    shape = tuple(state.qv.shape)
     ppt = torch.empty((n_steps, 4, shape[0]), dtype=dtype, device=dev)
     profiles = {n: torch.empty((n_steps,) + shape, dtype=dtype, device=dev)
-                for n in names}
+                for n in loop.profiles}
     for i0 in range(0, n_steps, CHUNK_STEPS):
         k = min(CHUNK_STEPS, n_steps - i0)
         loop.start_chunk(case.modulation_table(istep0 + i0, k, dtype))

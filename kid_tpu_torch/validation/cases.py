@@ -20,10 +20,14 @@ float64 the target fields and the cumulative rain must hold to
 ``scores.RTOL`` and nc/nwfa/nifa to ``scores.RTOL_AEROSOL_EXTRAS``; in
 float32 the fixed budgets on the integrated quantities hold
 (``scores.score_1d_f32``), and the chaos member (the same run from a
-1e-7-perturbed qv) gives the ensemble spread as evidence.
+1e-7-perturbed qv) gives the ensemble spread as evidence.  Each entry
+also says where its worst target and extra field are (column, level,
+the two values) and at which step the cumulative rain is farthest.
 ``run_ref_precision_model`` is the reference's own precision design, a
 float64 driver whose state is rounded to float32 every step.  Prints one
-line per case and a JSON summary; exits 1 if a case fails.
+line per case and a JSON summary; exits 1 if a case fails.  ``--out``
+writes the whole report; ``--record PATH`` merges the cases into the
+JSON record at PATH in the reference's blocks (``record``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import records
 from ..device import resolve_device
 from ..driver.cases import CASES
 from ..driver.loop import (BLOCKS, KidState, initial_state, make_step,
@@ -149,8 +154,15 @@ def validate_case(name: str, dtype=torch.float32, device="cuda",
     else:
         entry = scores.score_1d_f32(name, grid.rho0, grid.dz, final, rain,
                                     tmean, anchor)
+    extras = [f for f in KidState._fields if f not in scores.TARGET_FIELDS]
     entry.update(n_steps=n, dtype=str(dtype)[6:], launches=launches,
-                 run_seconds=time.perf_counter() - t0)
+                 run_seconds=time.perf_counter() - t0,
+                 worst_target_at={**scores.worst_cell(
+                     final, anchor, scores.TARGET_FIELDS), "step": n},
+                 worst_extra_at={**scores.worst_cell(final, anchor, extras),
+                                 "step": n},
+                 cum_ppt_worst_step=scores.worst_step(rain,
+                                                      anchor["ppt_rain"]))
     if chaos:
         final_p, rain_p, _, _ = run(case, dtype, n, device, perturb_qv=True,
                                     profile=False)
@@ -175,6 +187,29 @@ def validate_case(name: str, dtype=torch.float32, device="cuda",
             entry[f"ref_precision_model_{k}"] = v
     entry["seconds"] = time.perf_counter() - t0
     return entry
+
+
+def record(path, dtype, device, cases: dict) -> dict:
+    """Merge ``cases`` (name -> ``validate_case`` entry) into the JSON
+    record at ``path`` as the reference's scripts wrote their blocks of
+    ``VALIDATION_r05.json``: float64 as ``fp64`` (with ``rtol`` and
+    ``fp64_all_pass``), float32 as ``f32_<device type>`` (with its
+    budgets and ``f32_<device type>_all_pass``).  Cases already in the
+    block and not in ``cases`` stay."""
+    prev = records.read(path)
+    if dtype == torch.float64:
+        rows = {**prev.get("fp64", {}), **cases}
+        blocks = {"fp64": rows, "rtol": scores.RTOL,
+                  "rtol_aerosol_extras": scores.RTOL_AEROSOL_EXTRAS,
+                  "fp64_all_pass": all(e["pass"] for e in rows.values())}
+    else:
+        key = f"f32_{device.type}"
+        rows = {**prev.get(key, {}).get("cases", {}), **cases}
+        blocks = {key: {"pass_budgets": scores.budgets_1d(),
+                        "evidence_scale_field_rel": scores.F32_BUDGET,
+                        "backend": device.type, "cases": rows},
+                  f"{key}_all_pass": all(e["pass"] for e in rows.values())}
+    return records.merge(path, blocks, device)
 
 
 def summary_line(name: str, e: dict) -> str:
@@ -212,6 +247,9 @@ def main(argv=None) -> int:
                     help="run the port's oracle twin for each case first, "
                          "write DIR/<case>.npz and score against it")
     ap.add_argument("--out", default=None, help="JSON report path")
+    ap.add_argument("--record", default=None, metavar="PATH",
+                    help="merge the cases into this JSON record's fp64 or "
+                         "f32_<device> block (record())")
     args = ap.parse_args(argv)
     names = [c for c in args.cases.split(",") if c]
     chaos = set(names if args.chaos == "all" else args.chaos.split(","))
@@ -240,6 +278,8 @@ def main(argv=None) -> int:
     report["all_pass"] = all(e["pass"] for e in report["cases"].values())
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=1))
+    if args.record:
+        record(args.record, dtype, dev, report["cases"])
     print(json.dumps({"dtype": args.dtype, "device": report["device"],
                       "all_pass": report["all_pass"]}))
     return 0 if report["all_pass"] else 1

@@ -165,3 +165,44 @@ def ensemble_spread(final_a, final_b):
     return max(float(np.abs(_f64(final_a[f]) - _f64(final_b[f])).max()
                      / (np.abs(_f64(final_a[f])).max() + 1e-30))
                for f in TARGET_FIELDS)
+
+
+def worst_cell(final_fields, anchor, fields) -> dict:
+    """Where the worst of ``fields`` is: the field, its column and level
+    of largest |final - anchor| (relative to the anchor's largest
+    magnitude), and the two values there."""
+    best = None
+    for f in fields:
+        a, b = _f64(final_fields[f]), _f64(anchor[f])
+        d = np.abs(a - b)
+        rel = float(d.max() / (np.abs(b).max() + 1e-30))
+        if best is None or rel > best["rel"]:
+            col, lev = np.unravel_index(int(d.argmax()), d.shape)
+            best = {"field": f, "rel": rel, "column": int(col),
+                    "level": int(lev), "got": float(a[col, lev]),
+                    "want": float(b[col, lev])}
+    return best
+
+
+def budgets_1d() -> dict:
+    """The fixed f32 pass budgets of the 1-D cases, by quantity, as the
+    reference's record lists them."""
+    return {"cum_ppt_rel": {"default": PPT_BUDGET_DEFAULT, **PPT_BUDGET},
+            "final_water_path_rel": {"default": PATH_BUDGET,
+                                     **PATH_BUDGET_CASE},
+            "tmean_prof_rel": {"default": TMEAN_BUDGET, **TMEAN_BUDGET_CASE}}
+
+
+def budgets_2d() -> dict:
+    """The fixed f32 pass budgets of the 2-D cases."""
+    return {"cum_ppt_rel": PPT_BUDGET_DEFAULT,
+            "final_water_path_rel": PATH_BUDGET,
+            "tmean_prof_rel": TMEAN_BUDGET, "closure": CONS_TOL}
+
+
+def worst_step(ppt_rain_series, anchor_series) -> int:
+    """The step (0-based) at which the cumulative rain series is farthest
+    from the anchor's."""
+    return int(np.abs(_f64(ppt_rain_series).cumsum()
+                      - _f64(anchor_series).cumsum()).argmax())
+

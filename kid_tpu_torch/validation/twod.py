@@ -18,7 +18,10 @@ water-budget closure of both cases at full length is held to
 (``twin_equivalence``, ``validate_2d.py:83-111``): both cases at
 ``TWIN_NX`` columns for ``TWIN_STEPS`` steps (or ``--steps``) through the
 float64 driver and through the port's oracle twin on the host.  Prints
-one line per row and a JSON summary; exits 1 if a row fails.
+one line per row and a JSON summary; exits 1 if a row fails.  ``--out``
+writes the whole report; ``--record PATH`` merges the rows into the JSON
+record at PATH in the reference's blocks (``f32_<device>_2d``,
+``twod_conservation``, ``twod_oracle_twin``, ``twod_all_pass``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import records
 from ..device import resolve_device
 from ..dist import launch
 from ..driver.cases import CUMULUS2D, OROGRAPHIC2D
@@ -102,9 +106,27 @@ def score(case, result: dict) -> dict:
     n = len(result["ppt"]["rain"])
     anchor["ppt_rain"] = anchor["ppt_rain"][:n]   # a short run's prefix
     grid = case.grid()
-    return scores.score_2d_f32(case.name, grid.rho0, grid.dz,
-                               result["fields0"], result["final"],
-                               result["ppt"], result["tmean"], anchor)
+    entry = scores.score_2d_f32(case.name, grid.rho0, grid.dz,
+                                result["fields0"], result["final"],
+                                result["ppt"], result["tmean"], anchor)
+    extras = [f for f in KidState._fields if f not in scores.TARGET_FIELDS]
+    for key, fields in (("worst_target_at", scores.TARGET_FIELDS),
+                        ("worst_extra_at", extras)):
+        entry[key] = {**scores.worst_cell(result["final"], anchor, fields),
+                      "step": n}
+    return entry
+
+
+def record(path, device, blocks: dict) -> dict:
+    """Merge ``blocks`` into the JSON record at ``path`` (as the
+    reference's 2-D scripts wrote theirs into ``VALIDATION_r05.json``),
+    with ``twod_all_pass`` over the record's ``twod_oracle_twin`` and
+    ``twod_conservation`` blocks as they then stand."""
+    merged = {**records.read(path), **blocks}
+    blocks["twod_all_pass"] = all(
+        e["pass"] for k in ("twod_oracle_twin", "twod_conservation")
+        for e in merged.get(k, {}).values())
+    return records.merge(path, blocks, device)
 
 
 def same_bits(a: dict, b: dict) -> bool:
@@ -193,6 +215,10 @@ def main(argv=None) -> int:
                     help=f"run the oracle-twin rows instead (nx={TWIN_NX}, "
                          f"{TWIN_STEPS} steps unless --steps)")
     ap.add_argument("--out", default=None, help="JSON report path")
+    ap.add_argument("--record", default=None, metavar="PATH",
+                    help="merge the rows into this JSON record: "
+                         "f32_<device>_2d and twod_conservation, or "
+                         "twod_oracle_twin with --twin (record())")
     args = ap.parse_args(argv)
     try:
         dev = resolve_device(args.device)
@@ -200,7 +226,8 @@ def main(argv=None) -> int:
         print(f"validation: {e}", file=sys.stderr)
         return 2
     if args.twin:
-        return twin_main(dev, args.steps or TWIN_STEPS, args.out)
+        return twin_main(dev, args.steps or TWIN_STEPS, args.out,
+                         args.record)
     report = {"device": str(dev), "rows": {}, "conservation": {}}
     single = {}
     for case in (CUMULUS2D, OROGRAPHIC2D):
@@ -231,12 +258,21 @@ def main(argv=None) -> int:
         for e in d.values())
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=1))
+    if args.record:
+        key = f"f32_{dev.type}_2d"
+        blocks = {key: {"pass_budgets": scores.budgets_2d(),
+                        "backend": dev.type, "cases": report["rows"]},
+                  f"{key}_all_pass": all(e["pass"] for e in
+                                         report["rows"].values())}
+        if report["conservation"]:
+            blocks["twod_conservation"] = report["conservation"]
+        record(args.record, dev, blocks)
     print(json.dumps({"device": report["device"],
                       "all_pass": report["all_pass"]}))
     return 0 if report["all_pass"] else 1
 
 
-def twin_main(dev, n_steps: int, out) -> int:
+def twin_main(dev, n_steps: int, out, record_path=None) -> int:
     """The oracle-twin rows of ``main --twin``."""
     report = {"device": str(dev), "twin": {}}
     for case in (CUMULUS2D, OROGRAPHIC2D):
@@ -247,6 +283,8 @@ def twin_main(dev, n_steps: int, out) -> int:
     report["all_pass"] = all(e["pass"] for e in report["twin"].values())
     if out:
         Path(out).write_text(json.dumps(report, indent=1))
+    if record_path:
+        record(record_path, dev, {"twod_oracle_twin": report["twin"]})
     print(json.dumps({"device": report["device"],
                       "all_pass": report["all_pass"]}))
     return 0 if report["all_pass"] else 1

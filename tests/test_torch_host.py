@@ -145,25 +145,28 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(files) >= 15
     assert {"dist/mesh.py", "dist/launch.py", "validation/cases.py",
             "validation/twod.py", "validation/oracle.py",
-            "validation/driver_twin.py", "micro/graphs.py",
-            "bench.py"} <= {
+            "validation/driver_twin.py", "validation/chaos.py",
+            "micro/graphs.py", "bench.py", "baseline.py", "scaling.py",
+            "records.py"} <= {
         p.relative_to(PKG).as_posix() for p in files}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "kid_tpu", "flax"), (path,
-                                                                     mod)
+            assert top not in ("jax", "jaxlib", "kid_tpu", "flax", "tests",
+                               "prof", "test_oracle"), (path, mod)
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference_package():
     path = PKG.parent / "chip_smoke.py"
     for mod in _imports(path):
-        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu", "tests",
+                                         "prof"), mod
 
 
 def test_nccl_smoke_imports_neither_jax_nor_reference_package(monkeypatch):
     for mod in _imports(PKG.parent / "nccl_smoke.py"):
-        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu"), mod
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "kid_tpu", "tests",
+                                         "prof"), mod
     import nccl_smoke as N
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert N.main() == 2                   # NCCL ranks need two cards

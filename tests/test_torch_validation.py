@@ -10,7 +10,9 @@ read from their source.  Then ``validation.cases`` and
 reference precision model against the JAX package's, the port's float64
 driver against the oracle twin (``kid_tpu/validation/driver_twin.py``)
 at the tolerances of ``tests/test_driver_twin.py``, and ``bench`` at a
-tiny size on the CPU.
+tiny size on the CPU.  The ``--record`` flags merge their blocks into
+one JSON record and keep the others; ``baseline`` holds the reference's
+anchors (its C source, its seeded oracle column, its constant).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import validate_cases as R
 from kid_tpu.driver import cases as jcases
 from kid_tpu.tables.cache import get_tables as j_get_tables
 from kid_tpu.validation.driver_twin import oracle_simulate
-from kid_tpu_torch import bench
+from kid_tpu_torch import baseline, bench
 from kid_tpu_torch.dist import launch
 from kid_tpu_torch.driver import cases as tcases
 from kid_tpu_torch.driver.loop import KidState, run_case
@@ -258,7 +260,143 @@ def test_entry_points_default_to_the_card(monkeypatch):
         params = inspect.signature(fn).parameters
         assert params["device"].default == "cuda", fn.__name__
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (V.main, twod.main, bench.main, launch.main):
+    for main in (V.main, twod.main, bench.main, launch.main, baseline.main):
         assert main([]) == 2, main.__module__
     with pytest.raises(RuntimeError, match="device='cpu'"):
         V.validate_case("mixed1", n_steps=1)
+
+
+def test_record_merges_its_blocks_and_keeps_the_others(tmp_path):
+    out = tmp_path / "v.json"
+    out.write_text(json.dumps({"chaos_envelope": {"cases": {}},
+                               "fp64": {"deep1": {"pass": False}}}))
+    rc = V.main(["--device", "cpu", "--cases", "mixed1", "--steps", "20",
+                 "--dtype", "float64", "--write-finals", str(tmp_path),
+                 "--record", str(out)])
+    assert rc == 0 and (tmp_path / "mixed1.npz").exists()
+    r = json.loads(out.read_text())
+    assert r["chaos_envelope"] == {"cases": {}}                 # kept
+    assert set(r["fp64"]) == {"deep1", "mixed1"}                # merged
+    e = r["fp64"]["mixed1"]
+    assert e["pass"] is True and e["n_steps"] == 20
+    assert e["worst_target_field_rel"] <= S.RTOL
+    assert set(e["fields"]) == set(FIELDS)
+    assert e["worst_target_at"]["field"] in S.TARGET_FIELDS
+    assert e["worst_target_at"]["step"] == 20
+    assert r["rtol"] == S.RTOL and r["fp64_all_pass"] is False  # deep1
+    assert set(r["runs"]) == {"fp64", "rtol", "rtol_aerosol_extras",
+                              "fp64_all_pass"}
+    assert r["hardware"]["device"] == "cpu" and r["source_sha256"]
+    # float32 goes to its own block, with the reference's budgets
+    V.record(out, torch.float32, torch.device("cpu"),
+             {"warm1": {"pass": True}})
+    r = json.loads(out.read_text())
+    assert r["f32_cpu"]["cases"] == {"warm1": {"pass": True}}
+    assert r["f32_cpu"]["pass_budgets"]["cum_ppt_rel"] == {
+        "default": 2e-2, "aerosol1d": 5e-2}
+    assert r["f32_cpu_all_pass"] is True and "fp64" in r
+    # the 2-D twin rows, and twod_all_pass over the record's 2-D blocks
+    assert twod.main(["--twin", "--device", "cpu", "--steps", "2",
+                      "--record", str(out)]) == 0
+    r = json.loads(out.read_text())
+    assert set(r["twod_oracle_twin"]) == {"cumulus2d", "orographic2d"}
+    assert r["twod_all_pass"] is True and "f32_cpu" in r
+    twod.record(out, torch.device("cpu"),
+                {"twod_conservation": {"cumulus2d": {"pass": False}}})
+    r = json.loads(out.read_text())
+    assert r["twod_all_pass"] is False and "twod_oracle_twin" in r
+
+
+def test_baseline_holds_the_reference_anchors(tmp_path):
+    tree = ast.parse((ROOT / "bench_baseline.py").read_text())
+    src = next(ast.literal_eval(n.value) for n in tree.body
+               if isinstance(n, ast.Assign)
+               and getattr(n.targets[0], "id", "") == "_C_SRC")
+    assert baseline._C_SRC == src
+    assert bench.BASELINE_COL_STEPS_PER_SEC is \
+        baseline.BASELINE_COL_STEPS_PER_SEC
+    assert bench.BASELINE_COL_STEPS_PER_SEC == _constants(
+        "bench_baseline.py")["BASELINE_COL_STEPS_PER_SEC"] == 1.0e4
+    from test_oracle import _profile
+    for seed, warm in ((3, False), (5, True)):
+        want, got = _profile(120, seed, warm), baseline.profile(120, seed,
+                                                                warm)
+        assert set(got) == set(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+    out = tmp_path / "b.json"
+    out.write_text(json.dumps({"bench": {"vs_baseline": 100.0}}))
+    assert baseline.main(["--device", "cpu", "--record", str(out)]) == 0
+    r = json.loads(out.read_text())
+    assert r["bench"] == {"vs_baseline": 100.0}
+    b = r["baseline"]
+    assert b["anchor_a_ns_per_cell"] > 0
+    assert b["anchor_a_col_steps_per_sec"] == pytest.approx(
+        1e9 / (b["anchor_a_ns_per_cell"] * 120))
+    assert b["anchor_b_oracle_col_steps_per_sec"] > 0
+    assert b["baseline_col_steps_per_sec"] == 1.0e4
+
+
+
+def test_committed_records_hold_their_contract():
+    """The port's records at the root, as the card wrote them: every
+    sharded row bit for bit one process, the weak rows on 1, 2 and 4
+    cards, the five 1-D cases at full length in float64 through the
+    card's kernels, the chaos envelope of three cases in both classes,
+    each file with its hardware and one source digest."""
+    rec = {name: json.loads((ROOT / f"{name}_h100.json").read_text())
+           for name in ("SCALING", "VALIDATION", "MULTIPROC", "BENCH")}
+    assert len({r["source_sha256"] for r in rec.values()}) == 1
+    for r in rec.values():
+        assert "H100" in r["hardware"]["device"] and r["hardware"]["cards"]
+    sc = rec["SCALING"]
+    mesh = sc["nccl_mesh"]
+    assert len(sc["hardware"]["cards"]) == 4 and mesh["bitwise_equal"]
+    weak = mesh["weak_scaling"]["rows"]
+    assert {n: r["nx"] for n, r in weak.items()} == {
+        "1": 32768, "2": 65536, "4": 131072}
+    for row in (*weak.values(), *mesh["strong_scaling"]["rows"].values()):
+        assert row["bitwise_equal_to_one_process"], row["ranks"]
+        if row["ranks"] > 1:
+            assert row["backend"] == "nccl"
+            assert set(row["placement"]) == {"step"}
+    for e in sc["exchange_in_graph"].values():
+        assert e["nccl_kernels_per_step"] == 1.0
+        assert e["host_exchange_calls_per_step"] == 0.0
+    v = rec["VALIDATION"]
+    assert {k: e["n_steps"] for k, e in v["fp64"].items()} == V.RUNS
+    for name, e in v["fp64"].items():
+        kernels = ({"fused_rates", "fused_post"} if name == "aerosol1d"
+                   else {"fused_step"})
+        assert e["dtype"] == "float64" and e["launches"] == {
+            k: e["n_steps"] * (k in kernels) for k in e["launches"]}, name
+        assert e["pass"] == (e["worst_target_field_rel"] <= S.RTOL
+                             and e["cum_ppt_rain_rel"] <= S.RTOL
+                             and e["worst_aerosol_extra_rel"]
+                             <= S.RTOL_AEROSOL_EXTRAS), name
+    assert set(v["f32_cuda"]["cases"]) == set(V.RUNS)
+    assert set(v["f32_cuda_2d"]["cases"]) == {"cumulus2d", "orographic2d",
+                                              "cumulus2d_sharded"}
+    assert v["f32_cuda_2d"]["cases"]["cumulus2d_sharded"][
+        "bitwise_equal_to_single_process"]
+    assert set(v["twod_oracle_twin"]) == set(v["twod_conservation"]) == {
+        "cumulus2d", "orographic2d"}
+    env = v["chaos_envelope"]["cases"]
+    assert set(env) == {"aerosol1d", "mixed1", "warm1"}
+    for name, e in env.items():
+        assert e["n_steps"] == tcases.CASES[name].n_steps
+        assert e["dtype"] == "float32"
+        for kind in ("white_noise", "persistent_bias"):
+            assert e[kind]["members"] == 3 and e[kind]["eps"] == 1e-7
+    mp = rec["MULTIPROC"]
+    assert mp["bitwise_identical"] and mp["n_steps"] == 900
+    assert mp["dtype"] == "float64" and mp["ranks"] == [1, 4]
+    assert len(mp["layouts"][1]["devices"]) == 4
+    b = rec["BENCH"]
+    assert b["bench"]["vs_baseline"] == b["bench"]["value"] / 1.0e4
+    # the scaling record's throughput target names the bench run it read
+    t = sc["targets"]["throughput_vs_baseline_10x"]
+    assert t["vs_baseline"] == b["bench"]["vs_baseline"]
+    assert {k: t[k] for k in ("commit", "source_sha256", "at")} == {
+        k: b["runs"]["bench"][k] for k in ("commit", "source_sha256", "at")}
+    assert b["baseline"]["baseline_col_steps_per_sec"] == 1.0e4
