@@ -8,11 +8,13 @@ the port (``kid_tpu_torch``) only.  Phases, each of which exits non-zero
 on failure:
 
   1. card and build: the card's name and power limit, then the kernels
-     of ``kid_tpu_torch/micro/csrc`` (``fused_step``, ``fused_rates``,
-     ``fused_post``, ``fused_kid_step``), built together, and what the
-     card gives each instantiation (registers, spill bytes, static shared
-     bytes, active blocks per SM at nz 120 and 256);
-  2. ``fused_step`` against its plain PyTorch version on the card, on a
+     of ``kid_tpu_torch/micro/csrc`` (``table_stage``, ``fused_step``,
+     ``fused_rates``, ``fused_post``, ``fused_kid_step``), built
+     together, and what the card gives each instantiation (registers,
+     spill bytes, static shared bytes, active blocks per SM at nz 120 and
+     256);
+  2. ``fused_step`` against its plain PyTorch version on the card (its
+     table-stage channels from the plain table stage, as in 2b-2d), on a
      seeded synthetic batch (ncol=1000, nz 120 and 130 in float64 and
      float32, and nz 33, 64, 97 and 256 in float64, which put a warp edge
      at one level, a full warp, a ragged warp and eight warps; mixed and
@@ -35,18 +37,30 @@ on failure:
      float32 through ``simulate``, which captures its step as a CUDA
      graph in the 150 spin-up steps and replays it in 50 steps into the
      updraft pulse, timed as 5 windows of 10 steps (median and best), with
-     a profile of 5 more steps, the kernel's launch count, outputs checked
-     finite and non-negative, and the kernel timed against its plain
+     a profile of 5 more steps, the kernels' launch counts
+     (``table_stage`` and ``fused_step`` once a step), outputs checked
+     finite and non-negative, and ``fused_step`` timed against its plain
      version on the main path's own inputs;
   3b. the aerosol main path: aerosol1d widened the same way, through
-     ``fused_rates`` -> lookups -> ``fused_post`` (each launched once per
-     step), with the same checks, profile and timings, and the share of
-     cells and of warps in which each guard of the two kernels runs on
-     their last inputs;
+     ``table_stage`` -> ``fused_rates`` -> lookups -> ``fused_post``
+     (each launched once per step), with the same checks, profile and
+     timings, and the share of cells and of warps in which each guard of
+     the two split kernels runs on their last inputs;
   3c. the fused driver: mixed1 widened the same way with
      KID_TPU_TORCH_FUSED_DRIVER=1 (set by this script), through
-     ``fused_kid_step`` alone, with the same checks, profile and timings,
-     its ms/step printed beside phase 3's;
+     ``table_stage`` and ``fused_kid_step``, with the same checks, profile
+     and timings, its ms/step printed beside phase 3's;
+  2e. (run after 3c, on their inputs) ``table_stage`` against its plain
+     version: on the last inputs of mixed1's and aerosol1d's main paths
+     (phases 3 and 3b) and of warm1 widened the same way (150 steps, then
+     one step recorded) at (8192, 120) f32, on a seeded (256, 120) f64
+     batch (mixed, aerosol-aware, warm) and at the 2-D cases' nz 60 (f32
+     and f64, mixed and warm): f64 within 1e-9 normalised outside the
+     counted index flips, f32 under the knife-edge model, the number of
+     cells whose channels differ by more than the noise threshold (an
+     index flipped at a knife edge) printed; a digest of each batch and a
+     combined one, ms/launch, the plain version's ms, the bound and the
+     registers, spill and blocks per SM;
   4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
      256 columns and orographic2d at its own 64 x 60, from a seeded state
      at step 150, 20 steps through the kernel path and through the plain
@@ -54,12 +68,14 @@ on failure:
      float64, and orographic2d once more with
      KID_TPU_TORCH_FUSED_DRIVER=1, which a 2-D case ignores (the same
      launches, bit-identical output); mixed1 and warm1_recon through the
-     fused driver the same way, and the fused driver against the default
+     fused driver the same way (the plain path swaps ``table_stage`` for
+     its plain version too), and the fused driver against the default
      kernel path on the nine scheme fields and the precip (nc, nwfa and
      nifa differ by design and are printed, not gated);
   5. the 2-D path: cumulus2d (warm) and orographic2d (mixed phase) at
      their own 64 x 60 for all 900 steps in float32 through ``run_case``
-     (``fused_step`` once per step and no other kernel), then the same
+     (``table_stage`` and ``fused_step`` once per step and no other
+     kernel), then the same
      run through ``simulate`` in timed windows (median and best, bit for
      bit the same), a profile, scores against the float64 driver's
      finals in ``validation_finals/`` with the budgets of the reference's
@@ -156,8 +172,8 @@ plain runs of phase 4 run the eager loop.  ``batched_microphysics`` and
 ``mp_driver_3d`` called on their own replay a CUDA graph of the call
 (``kid_tpu_torch/micro/graphs.py``), dropped after phases 5b and 8.
 
-Phases 2, 2b, 2c and 2d print a SHA-256 digest (first 16 hex digits) of
-each kernel's outputs on each batch, and a combined digest per kernel
+Phases 2, 2b, 2c, 2d and 2e print a SHA-256 digest (first 16 hex digits)
+of each kernel's outputs on each batch, and a combined digest per kernel
 (phase 2d's apart): the inputs are seeded and the kernels deterministic,
 so a change to a kernel that keeps its results bit for bit keeps the
 digests.  The new phases print their seconds.
@@ -240,9 +256,10 @@ TWO_WINDOWS = ("aerosol1d",)
 CHAOS_CASES = ("mixed1", "deep1", "aerosol1d")
 # phase 5b: batched_microphysics cells -> (aerosol-aware, rate profiles,
 # the kernels of a call)
-BATCHED_CELLS = {"mixed": (False, False, ("fused_step",)),
-                 "mixed, rates": (False, True, ("fused_step",)),
-                 "aerosol": (True, False, ("fused_rates", "fused_post"))}
+BATCHED_CELLS = {"mixed": (False, False, ("table_stage", "fused_step")),
+                 "mixed, rates": (False, True, ("table_stage", "fused_step")),
+                 "aerosol": (True, False, ("table_stage", "fused_rates",
+                                           "fused_post"))}
 # phase 10: steps of the 1-D cases; (columns, steps) of the 2-D cases
 ORACLE_STEPS = 100
 ORACLE_2D = (16, 50)
@@ -579,9 +596,12 @@ def phase_resources():
                         r = cuda_build.resources(name, nz, dtype, warm,
                                                  want_rates)
                         warps = r["blocks_per_sm"] * ((nz + 31) // 32)
+                        # table_stage has no rate profiles: its flag is
+                        # the aerosol-aware instantiation
+                        flag = "aero" if name == "table_stage" else "rates"
                         print(f"resources {name} nz={nz} {str(dtype)[6:]} "
                               f"{'warm ' if warm else 'mixed'} "
-                              f"rates={int(want_rates)}: {r['regs']} regs, "
+                              f"{flag}={int(want_rates)}: {r['regs']} regs, "
                               f"{r['spill_bytes']} spill bytes, "
                               f"{r['shared_bytes']} static shared bytes, "
                               f"{r['blocks_per_sm']} blocks/SM ({warps} "
@@ -763,7 +783,7 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
     return dict(
         name=name, route="cuda",
         source=f"kid_tpu_torch/micro/csrc/{name}.cu",
-        replaces=f"kid_tpu/micro/pallas_step.py:{REPLACES[name]}",
+        replaces=REPLACES[name],
         launches=launches, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -771,9 +791,23 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
         blocks_per_sm=res["blocks_per_sm"])
 
 
-# the def line of each TPU kernel in kid_tpu/micro/pallas_step.py
-REPLACES = {"fused_step": 353, "fused_rates": 202, "fused_post": 266,
-            "fused_kid_step": 67}
+# what each kernel replaces: the def line of a TPU kernel in
+# kid_tpu/micro/pallas_step.py, or the reference's XLA stages
+REPLACES = {"table_stage": "kid_tpu/micro/solver.py:1132,1350",
+            **{k: f"kid_tpu/micro/pallas_step.py:{v}" for k, v in (
+                ("fused_step", 353), ("fused_rates", 202),
+                ("fused_post", 266), ("fused_kid_step", 67))}}
+# the kernels of each step path, each launched once a step
+STEP = ("table_stage", "fused_step")
+SPLIT = ("table_stage", "fused_rates", "fused_post")
+KID = ("table_stage", "fused_kid_step")
+
+
+def path_counts(counts, n, kernels) -> dict:
+    """``counts``' kernels with ``n`` launches for those of ``kernels``
+    and 0 for the others: what a path of ``kernels`` launches in ``n``
+    steps."""
+    return {k: n if k in kernels else 0 for k in counts}
 
 
 def phase_main_path(dev, card, res):
@@ -783,7 +817,7 @@ def phase_main_path(dev, card, res):
     from kid_tpu_torch.micro.state import ColumnState
 
     case = dataclasses.replace(MIXED1, nx=MAIN_NX)
-    counts, last, step_ms = run_main_path(dev, card, case, ("fused_step",),
+    counts, last, step_ms = run_main_path(dev, card, case, STEP,
                                           [(F, "pack_inputs")])
 
     # the kernel and its plain version on the main path's last input
@@ -803,7 +837,8 @@ def phase_main_path(dev, card, res):
     return [kernel_record(
         "fused_step", card, x, lambda: F.launch_packed(x, cfg, dt_f, False),
         lambda: F.fused_step_ref(st_in, x[12], x[13], tv, cfg, dt_f, False),
-        out_bytes, counts["fused_step"], got_want, res["fused_step"])], step_ms
+        out_bytes, counts["fused_step"], got_want, res["fused_step"])], \
+        step_ms, counts, x
 
 
 def phase_fused_driver_main_path(dev, card, default_ms, res):
@@ -816,7 +851,7 @@ def phase_fused_driver_main_path(dev, card, default_ms, res):
     os.environ[FUSED_DRIVER_ENV] = "1"
     try:
         counts, last, step_ms = run_main_path(
-            dev, card, case, ("fused_kid_step",), [(FK, "pack_kid_inputs")])
+            dev, card, case, KID, [(FK, "pack_kid_inputs")])
     finally:
         del os.environ[FUSED_DRIVER_ENV]
     print(f"fused driver mixed1 ({case.nx}, {case.nz}) f32: median "
@@ -849,7 +884,7 @@ def phase_fused_driver_main_path(dev, card, default_ms, res):
         "fused_kid_step", card, (x, prof),
         lambda: FK.launch_kid_packed(x, prof, m, cfg, dt_f, False), plain,
         out_bytes, counts["fused_kid_step"], got_want,
-        res["fused_kid_step"])]
+        res["fused_kid_step"])], counts
 
 
 def phase_aerosol_main_path(dev, card, res):
@@ -860,7 +895,7 @@ def phase_aerosol_main_path(dev, card, res):
 
     case = dataclasses.replace(AEROSOL1D, nx=MAIN_NX)
     counts, last, _ = run_main_path(
-        dev, card, case, ("fused_rates", "fused_post"),
+        dev, card, case, SPLIT,
         [(A, "pack_rates_inputs"), (A, "pack_post_inputs")])
     cfg, dt_f = case.micro, case.dt
     records = []
@@ -909,7 +944,174 @@ def phase_aerosol_main_path(dev, card, res):
                                                  False),
                  lambda: A.fused_post_ref(st_b, xb[12], xb[13], p8, aux, cfg,
                                           dt_f, False))
-    return records
+    return records, counts, xa
+
+
+# phase 2e: the f64 batch's columns, and the 2-D cases' nz
+TABLE_F64_NCOL, TABLE_2D_NZ = 256, 60
+
+
+def index_flips(got: dict, want: dict, noise: float) -> tuple:
+    """The cells (column, level) where some tv channel's normalised error
+    (as ``equiv_report`` normalises it) is over ``noise``: a lookup index
+    that flipped at a knife edge.  Returns (their number, the channels
+    over ``noise`` there)."""
+    cells, chans = None, []
+    for k, b in want.items():
+        b = b.double()
+        scale = b.abs() + 1e-3 * b.abs().max() + 1e-30
+        over = (got[k].double() - b).abs() / scale > noise
+        if bool(over.any()):
+            chans.append(k)
+        cells = over if cells is None else cells | over
+    return int(cells.sum()), chans
+
+
+def table_bytes(st, pres, tables, cfg) -> int:
+    """The bytes of the table values that the table stage's data needs
+    on these inputs: each distinct element read once, a gather counted
+    only where its consumers' mask holds (the plain version's indices)."""
+    from kid_tpu_torch import constants as c
+    from kid_tpu_torch.micro import solver as S
+    pro, idx = S._prologue(st, pres, cfg)
+    esize = pres.element_size()
+    n = torch.unique(idx["rw"] * c.NBC + idx["cw"]).numel()
+    if cfg.iiwarm:
+        return n * esize
+    temp, rr, rs, rg, rc = (pro[k] for k in ("temp", "rr", "rs", "rg",
+                                              "rc"))
+    t_lt_0 = temp < c.T_0
+    rr_on = rr >= S._RR1
+    lin_s = ((idx["s"] * c.NTB_T + idx["t"]) * c.NTB_R1 + idx["r1"]) \
+        * c.NTB_R + idx["r"]
+    lin_g = ((idx["g1"] * c.NTB_G + idx["g"]) * c.NTB_R1 + idx["r1"]) \
+        * c.NTB_R + idx["r"]
+    lin_f = (idx["r"] * c.NTB_R1 + idx["r1"]) * 45 + idx["tc"]
+    at_i = idx["i"] * c.NTB_I1 + idx["i1"]
+    ice_on = t_lt_0 & (pro["qi1d"] > c.R1)
+    for lin, mask, width in (
+            (idx["sw"] * c.NBC + idx["cw"], None, 1),
+            (lin_s, rr_on & (rs >= S._RS1), 5),
+            (lin_g, rr_on & (rg >= S._RG1), 4),
+            (lin_f, t_lt_0 & (rr > S._RR1), 4),
+            (idx["c"] * 45 + idx["tc"], t_lt_0 & (rc > S._RC1), 2),
+            (at_i, None, 1), (at_i, ice_on, 2)):
+        sel = lin if mask is None else lin[mask]
+        n += torch.unique(sel).numel() * width
+    return n * esize
+
+
+def table_stage_vs_plain(label, st, pres, tables, cfg, dt_f, digests):
+    """``table_stage`` against its plain version on one batch: f64 within
+    1e-9 normalised, f32 under the knife-edge model at 1e-3, each outside
+    the counted index flips, which are printed with the batch's digest.
+    Returns the kernel's and the plain version's tv dicts."""
+    import kid_tpu_torch.micro.table_stage as TS
+    got = TS.table_stage(st, pres, tables, cfg, dt_f)
+    want = TS.table_stage_ref(st, pres, tables, cfg, dt_f)
+    torch.cuda.synchronize()
+    noise = 1e-9 if st.qv.dtype == torch.float64 else 1e-3
+    worst = equiv_report(got, want, noise)
+    n_flip, chans = index_flips(got, want, noise)
+    d = record_digest(digests, "table_stage", label, got)
+    print(f"table_stage vs plain  {label}: worst normalised error "
+          f"{worst:.3e} (limit {noise:g}) outside {n_flip} index-flip cells "
+          f"of {st.qv.numel()}{' in ' + ', '.join(chans) if chans else ''}, "
+          f"digest {d}", flush=True)
+    return got, want
+
+
+def warm1_inputs(dev):
+    """warm1 widened to MAIN_NX columns in float32: 150 steps, then one
+    step with the fused_step packer recorded (its first 13 rows are the
+    table stage's input).  Returns the packed input."""
+    import kid_tpu_torch.micro.fused_step as F
+    from kid_tpu_torch.driver.cases import WARM1
+    from kid_tpu_torch.driver.loop import run_case, simulate
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.tables.cache import get_tables
+    case = dataclasses.replace(WARM1, nx=MAIN_NX)
+    st, _ = run_case(case, torch.float32, n_steps=N_SPIN, device=dev)
+    tables = device_tables(get_tables(iiwarm=True), torch.float32, dev)
+    last, restore = recording([(F, "pack_inputs")])
+    try:
+        simulate(st, tables, case, 1, istep0=N_SPIN, device=dev,
+                 graphs=False)
+    finally:
+        restore()
+    return last["pack_inputs"]
+
+
+def phase_table_stage(dev, card, digests, launches, x_mixed, x_aero):
+    """``table_stage`` against its plain version: on the last inputs of
+    mixed1's and aerosol1d's main paths and of warm1 at (MAIN_NX, 120)
+    f32, each timed beside its plain version and bound; on a seeded
+    (TABLE_F64_NCOL, 120) f64 batch (mixed, aerosol-aware, warm); at the
+    2-D cases' nz in both dtypes (mixed, warm).  Returns the kernels-line
+    record of mixed1's input, whose launches are ``launches``."""
+    import kid_tpu_torch.micro.table_stage as TS
+    from kid_tpu_torch.config import MicroConfig
+    from kid_tpu_torch.driver.cases import AEROSOL1D, MIXED1, WARM1
+    from kid_tpu_torch.micro import cuda_build
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+    f32, f64 = torch.float32, torch.float64
+    tabs = {(w, dt): S.device_tables(get_tables(iiwarm=w), dt, dev)
+            for w in (False, True) for dt in (f32, f64)}
+    record = None
+    for case, x in ((MIXED1, x_mixed), (AEROSOL1D, x_aero),
+                    (WARM1, warm1_inputs(dev))):
+        cfg, dt_f = case.micro, case.dt
+        st, pres = ColumnState(*x[:12]), x[12]
+        tables = tabs[(cfg.iiwarm, f32)]
+        ncol, nz = pres.shape
+        label = f"{case.name}'s last input ({ncol}, {nz}) float32"
+        table_stage_vs_plain(label, st, pres, tables, cfg, dt_f, digests)
+        r = cuda_build.resources("table_stage", nz, f32, cfg.iiwarm,
+                                 cfg.is_aerosol_aware)
+        out = torch.empty((len(S.tv_keys(cfg)), ncol, nz), dtype=f32,
+                          device=dev)
+        chans = list(x[:13])
+        # the table values these inputs need, each read once
+        needed = torch.empty(table_bytes(st, pres, tables, cfg) // 4,
+                             dtype=f32, device=dev)
+
+        def got_want(st=st, pres=pres, tables=tables, cfg=cfg, dt_f=dt_f):
+            got = TS.table_stage(st, pres, tables, cfg, dt_f)
+            want = TS.table_stage_ref(st, pres, tables, cfg, dt_f)
+            torch.cuda.synchronize()
+            return got, want
+
+        rec = kernel_record(
+            "table_stage", card, (x[:13], needed),
+            lambda chans=chans, tables=tables, out=out, cfg=cfg, dt_f=dt_f:
+            TS.launch(chans, tables, out, cfg, dt_f),
+            lambda st=st, pres=pres, tables=tables, cfg=cfg, dt_f=dt_f:
+            TS.table_stage_ref(st, pres, tables, cfg, dt_f),
+            out.numel() * out.element_size(), launches, got_want, r,
+            f"{case.name}'s last input ({r['regs']} regs, "
+            f"{r['spill_bytes']} spill bytes, {r['blocks_per_sm']} blocks "
+            f"of {(nz + 31) // 32 * 32} threads/SM)")
+        record = record or rec
+    st, pres, _ = make_batch(TABLE_F64_NCOL, 120, 3, f64, dev)
+    for cfg in (MicroConfig(iiwarm=False),
+                MicroConfig(iiwarm=False, is_aerosol_aware=True),
+                MicroConfig(iiwarm=True)):
+        kind = ("warm" if cfg.iiwarm else "aerosol" if cfg.is_aerosol_aware
+                else "mixed")
+        table_stage_vs_plain(f"seeded ({TABLE_F64_NCOL}, 120) float64 "
+                             f"{kind}", st, pres, tabs[(cfg.iiwarm, f64)],
+                             cfg, 10.0, digests)
+    for dtype in (f64, f32):
+        st, pres, _ = make_batch(BATCH_NCOL, TABLE_2D_NZ, 0, dtype, dev)
+        for warm in (False, True):
+            table_stage_vs_plain(
+                f"seeded ({BATCH_NCOL}, {TABLE_2D_NZ}) {str(dtype)[6:]} "
+                f"{'warm' if warm else 'mixed'}", st, pres,
+                tabs[(warm, dtype)], MicroConfig(iiwarm=warm), 10.0, digests)
+    print_digests(digests, "table_stage")
+    return record
 
 
 def guard_shares(card, *plain):
@@ -981,9 +1183,11 @@ def profile_steps(dev, card, st, tables, case, istep0, step_ms,
     ``n`` steps, self device time by kernel, the number of kernels a step
     launches, the device's busy share of the profiled window and each
     hand-written kernel's share of the device time; fails unless each
-    kernel of ``path_kernels`` ran once a step.  ``names`` are the streams
-    of the timed run, so that the profile replays its captured step
-    (other streams would capture one inside the profile)."""
+    kernel of ``path_kernels`` ran once a step, and unless the only torch
+    gather a step is aerosol-aware configs' ``tnc_wev`` lookup (the table
+    stage gathers inside its kernel).  ``names`` are the streams of the
+    timed run, so that the profile replays its captured step (other
+    streams would capture one inside the profile)."""
     from kid_tpu_torch.driver.loop import simulate
     rows, wall = device_profile(
         lambda: simulate(st, tables, case, n, names, istep0=istep0,
@@ -994,6 +1198,10 @@ def profile_steps(dev, card, st, tables, case, istep0, step_ms,
               "measured)", flush=True)
         return
     check_profiled_launches(f"profile of {case.name}", rows, path_kernels)
+    gathers = sum(r[2] for r in rows if "gather" in r[0])
+    if gathers != int(case.micro.is_aerosol_aware):
+        raise AssertionError(f"profile of {case.name}: {gathers} torch "
+                             f"gathers a step")
     n_kernels = sum(r[2] for r in rows)
     shares = []
     for name in path_kernels:
@@ -1003,8 +1211,8 @@ def profile_steps(dev, card, st, tables, case, istep0, step_ms,
     print(f"profile of {n} {case.name} steps: device time {total:.3f} "
           f"ms/step in {n_kernels:.0f} kernels/step, busy share "
           f"{total / wall:.3f} of the profiled window's {wall:.3f} ms/step "
-          f"(unprofiled {step_ms:.3f} ms/step); {'; '.join(shares)} "
-          f"[{card}]", flush=True)
+          f"(unprofiled {step_ms:.3f} ms/step); {'; '.join(shares)}; "
+          f"{gathers:.0f} torch gathers a step [{card}]", flush=True)
     for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:8.4f} ms/step {cnt:6.1f}x  {key[:90]}", flush=True)
 
@@ -1036,6 +1244,7 @@ def seeded_state(case, dev, seed=0):
 def phase_end_to_end(dev):
     import kid_tpu_torch.micro.fused_step as F
     import kid_tpu_torch.micro.split_step as A
+    import kid_tpu_torch.micro.table_stage as TS
     from kid_tpu_torch.driver.cases import CASES
     from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, KidState, simulate
     from kid_tpu_torch.micro.solver import device_tables
@@ -1051,11 +1260,12 @@ def phase_end_to_end(dev):
                                torch.float64, dev)
         st0 = seeded_state(case, dev)
         # the kernels of this case's path, and their plain versions
+        swaps = [(TS, "table_stage", TS.table_stage_ref)]
         if case.micro.is_aerosol_aware:
-            swaps = [(A, "fused_rates", A.fused_rates_ref),
-                     (A, "fused_post", A.fused_post_ref)]
+            swaps += [(A, "fused_rates", A.fused_rates_ref),
+                      (A, "fused_post", A.fused_post_ref)]
         else:
-            swaps = [(F, "fused_step", F.fused_step_ref)]
+            swaps += [(F, "fused_step", F.fused_step_ref)]
         n0 = read_counts()
         k_st, k_out = simulate(st0, tables, case, 20, istep0=150, device=dev)
         n1 = read_counts()
@@ -1094,7 +1304,7 @@ def phase_end_to_end(dev):
         finally:
             del os.environ[FUSED_DRIVER_ENV]
         launched = {k: n1[k] - n0[k] for k in n1}
-        if launched != {k: 20 if k == "fused_step" else 0 for k in n1}:
+        if launched != path_counts(n1, 20, STEP):
             raise AssertionError(f"{name} with {FUSED_DRIVER_ENV}=1: "
                                  f"launches {launched}")
         for f in KidState._fields:
@@ -1112,6 +1322,7 @@ def phase_end_to_end(dev):
 
 def phase_fused_driver_end_to_end(dev):
     import kid_tpu_torch.micro.fused_kid_step as FK
+    import kid_tpu_torch.micro.table_stage as TS
     from kid_tpu_torch.driver.cases import CASES
     from kid_tpu_torch.driver.loop import FUSED_DRIVER_ENV, simulate
     from kid_tpu_torch.micro.solver import device_tables
@@ -1128,20 +1339,21 @@ def phase_fused_driver_end_to_end(dev):
                             graphs=graphs)
 
         d_st, d_out = run()                  # the default kernel path
-        kernel = FK.fused_kid_step
+        kernels = FK.fused_kid_step, TS.table_stage
         os.environ[FUSED_DRIVER_ENV] = "1"
         try:
             n0 = read_counts()
             k_st, k_out = run()
             n1 = read_counts()
             FK.fused_kid_step = FK.fused_kid_step_ref  # the plain path
+            TS.table_stage = TS.table_stage_ref
             p_st, p_out = run(graphs=False)
         finally:
-            FK.fused_kid_step = kernel
+            FK.fused_kid_step, TS.table_stage = kernels
             del os.environ[FUSED_DRIVER_ENV]
         torch.cuda.synchronize()
         launched = {k: n1[k] - n0[k] for k in n1}
-        if launched != {k: 20 if k == "fused_kid_step" else 0 for k in n1}:
+        if launched != path_counts(n1, 20, KID):
             raise AssertionError(f"fused driver {name}: launches {launched}")
         worst = equiv_report(k_st._asdict(), p_st._asdict(), 1e-8)
         worst_d = equiv_report({f: getattr(k_st, f) for f in scheme},
@@ -1178,7 +1390,7 @@ def phase_2d(dev, card):
     in float32 through ``run_case``, then again through ``simulate`` in
     timed windows (bit for bit the same run); launch counts, outputs,
     profile, scores against the float64 anchors, and ``fused_step`` on the
-    path's last input.  Returns {case: fused_step launches}."""
+    path's last input.  Returns {case: launches}."""
     import kid_tpu_torch.micro.fused_step as F
     from kid_tpu_torch.driver.cases import CUMULUS2D, OROGRAPHIC2D
     from kid_tpu_torch.driver.loop import (KidState, initial_state, run_case,
@@ -1200,10 +1412,10 @@ def phase_2d(dev, card):
         torch.cuda.synchronize()
         counts = read_counts()
         run_s = time.perf_counter() - t0
-        if counts != {k: n if k == "fused_step" else 0 for k in counts}:
+        if counts != path_counts(counts, n, STEP):
             raise AssertionError(f"{case.name}: launches {counts} in {n} "
-                                 f"steps, expected {n} fused_step only")
-        launches[case.name] = counts["fused_step"]
+                                 f"steps, expected {n} of {STEP} only")
+        launches[case.name] = counts
         check_finite_nonnegative(case.name, {
             **final._asdict(), **{k: getattr(streams, k) for k in PPT},
             **streams.profiles})
@@ -1239,15 +1451,16 @@ def phase_2d(dev, card):
                 raise AssertionError(f"{case.name}: windowed {k} differs")
         step_ms = float(np.median(window_ms))
         print(f"2-D {case.name} ({case.nx}, {case.nz}) f32, {n} steps: "
-              f"run_case {run_s:.1f} s with {launches[case.name]} fused_step "
-              f"launches and no other kernel; {len(window_ms)} windows of "
+              f"run_case {run_s:.1f} s with {n} table_stage and {n} "
+              f"fused_step launches and no other kernel; {len(window_ms)} "
+              f"windows of "
               f"{N_WINDOW_2D} steps through simulate, bit for bit the same: "
               f"median {step_ms:.3f} ms/step ({case.nx * 1e3 / step_ms:.0f} "
               f"column-steps/s), best {min(window_ms):.3f} ms/step, windows "
               f"{' '.join(f'{m:.3f}' for m in window_ms)} ms/step [{card}]",
               flush=True)
         profile_steps(dev, card, st_first, tables, case, N_WINDOW_2D,
-                      step_ms, ("fused_step",), names=names)
+                      step_ms, STEP, names=names)
 
         # scores against the float64 driver's full-size finals
         grid = case.grid()
@@ -1432,12 +1645,12 @@ def phase_wrf(dev, card):
     for eff in (False, True):
         counts, times, n, (fields, precip, _) = graphed_and_eager(
             "mp_driver_3d", lambda graphs, eff=eff: call(eff, graphs))
-        if counts["graphed"] != {k: int(k == "fused_step") for k in counts[
-                "graphed"]}:
+        if counts["graphed"] != path_counts(counts["graphed"], 1, STEP):
             raise AssertionError(f"mp_driver_3d: launches {counts}")
         print(f"mp_driver_3d{' with radii' if eff else ''} graphed and "
               f"eager on a {WRF_TILE} f32 tile: the same bits in {n} "
-              f"outputs, 1 fused_step launch a call both ways; "
+              f"outputs, 1 table_stage and 1 fused_step launch a call both "
+              f"ways; "
               f"{times_line(times)}; wall "
               f"{times['eager'][0] / times['graphed'][0]:.2f}x [{card}]",
               flush=True)
@@ -1496,8 +1709,9 @@ def phase_wrf(dev, card):
                               for a in outs], 20)
     print(f"mp_driver_3d on an (i, k, j) = {tuple(qv.shape)} f32 tile "
           f"(mixed phase, {ni_ * nj} columns), graphed: {ms:.3f} ms/call, 1 "
-          f"fused_step launch a call; layout moves (i,k,j) -> columns "
-          f"{in_ms:.3f} ms, columns -> (i,k,j) {out_ms:.3f} ms, "
+          f"table_stage and 1 fused_step launch a call; layout moves "
+          f"(i,k,j) -> columns {in_ms:.3f} ms, columns -> (i,k,j) "
+          f"{out_ms:.3f} ms, "
           f"{(in_ms + out_ms) / ms:.3f} of the call; equal to the columns "
           f"run by hand; rain {float(precip.rainncv.double().sum()):.4e}, "
           f"snow ratio max {float(sr.max()):.3f} [{card}]", flush=True)
@@ -1582,13 +1796,12 @@ def release_graphs():
 
 def check_ranks(label, ranks, n, graphed):
     """Raise unless every rank made one halo exchange and one
-    ``fused_step`` launch (and no other) a step, and replayed a captured
-    step if ``graphed`` (else ran eagerly)."""
+    ``table_stage`` and one ``fused_step`` launch (and no other) a step,
+    and replayed a captured step if ``graphed`` (else ran eagerly)."""
     for r in ranks:
-        if r["launches"] != {k: n if k == "fused_step" else 0
-                             for k in r["launches"]}:
+        if r["launches"] != path_counts(r["launches"], n, STEP):
             raise AssertionError(f"{label} rank {r['rank']}: launches "
-                                 f"{r['launches']}, expected {n} fused_step")
+                                 f"{r['launches']}, expected {n} of {STEP}")
         if r["exchange_calls"] != n:
             raise AssertionError(f"{label} rank {r['rank']}: "
                                  f"{r['exchange_calls']} halo exchanges in "
@@ -1623,8 +1836,7 @@ def phase_sharded_2d(dev, card):
     many = twod.run_2d_sharded(case, N_RANKS, torch.float32, dev)
     t2 = time.perf_counter()
     n = case.n_steps
-    if one["launches"] != {k: n if k == "fused_step" else 0
-                           for k in one["launches"]}:
+    if one["launches"] != path_counts(one["launches"], n, STEP):
         raise AssertionError(f"cumulus2d: launches {one['launches']}")
     check_ranks("cumulus2d", many["ranks"], n, True)
     if not twod.same_bits(one, many):
@@ -1640,12 +1852,13 @@ def phase_sharded_2d(dev, card):
           f"(finals and the four precip series); one process "
           f"{t1 - t0:.1f} s, {N_RANKS} ranks {t2 - t1:.1f} s with spawning; "
           f"{rank_line(ranks)} (each rank's window holds its capture); "
+          f"{many['launches']['table_stage']} table_stage and "
           f"{many['launches']['fused_step']} fused_step launches in all "
           f"[{card}]", flush=True)
     print("  " + twod.line("cumulus2d_sharded", entry), flush=True)
     if not entry["pass"]:
         raise AssertionError(f"cumulus2d_sharded over a budget: {entry}")
-    return many["launches"]["fused_step"]
+    return many["launches"]
 
 
 def phase_flagship(dev, card):
@@ -1654,7 +1867,7 @@ def phase_flagship(dev, card):
     steps timed in one process (after the same window once untimed) and
     profiled, ``fused_step`` on the path's last input, and the same steps
     on N_RANKS ranks of this card (graphed) from the spun-up state: the
-    same bits.  Returns the timed window's ``fused_step`` launches."""
+    same bits.  Returns the timed window's launches."""
     import kid_tpu_torch.micro.fused_step as F
     from kid_tpu_torch.dist import launch
     from kid_tpu_torch.driver.cases import CUMULUS2D
@@ -1705,7 +1918,7 @@ def phase_flagship(dev, card):
     simulate(st, tables, case, 0, istep0=i0, device=dev)
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
-    if counts != {k: n if k == "fused_step" else 0 for k in counts}:
+    if counts != path_counts(counts, n, STEP):
         raise AssertionError(f"flagship: launches {counts} in {n} steps")
     check_finite_nonnegative("flagship", {
         **final._asdict(), **{k: getattr(out, k) for k in PPT}})
@@ -1719,12 +1932,12 @@ def phase_flagship(dev, card):
           f"before it was kept: {build_ms:.1f} ms, {build_ms / n:.3f} "
           f"ms/step); the spin-up's first call (warm-up, capture and 1 "
           f"step) {first_ms:.1f} ms; "
-          f"{counts['fused_step']} fused_step launches and no other kernel; "
-          f"peak device memory {peak / 2**30:.2f} GiB; qc max "
+          f"{counts['table_stage']} table_stage and {counts['fused_step']} "
+          f"fused_step launches and no other kernel; peak device memory "
+          f"{peak / 2**30:.2f} GiB; qc max "
           f"{float(final.qc.max()):.3e}, rain in the window "
           f"{float(out.ppt_rain.double().sum()):.4e} [{card}]", flush=True)
-    profile_steps(dev, card, final, tables, case, i0 + n, step_ms,
-                  ("fused_step",))
+    profile_steps(dev, card, final, tables, case, i0 + n, step_ms, STEP)
 
     # fused_step and its plain version on the path's last input
     x = inputs["pack_inputs"]
@@ -1775,7 +1988,7 @@ def phase_flagship(dev, card):
           f"the four precip series); {ranks_s:.1f} s with spawning and {n} "
           f"warm-up steps (the capture among them); "
           f"{rank_line(sharded.ranks)} [{card}]", flush=True)
-    return counts["fused_step"]
+    return counts
 
 
 def phase_one_rank_in_step(dev, card):
@@ -1788,7 +2001,7 @@ def phase_one_rank_in_step(dev, card):
     and, in ``N_PROFILED`` profiled steps more, no host call of the
     exchange; the rank's ms/step beside ``simulate``'s (host clock, each
     after a call that captured its step).  Returns the rank's
-    ``fused_step`` launches."""
+    launches."""
     from kid_tpu_torch.dist import launch
     from kid_tpu_torch.driver.cases import CUMULUS2D
     from kid_tpu_torch.driver.loop import KidState, initial_state, simulate
@@ -1823,7 +2036,8 @@ def phase_one_rank_in_step(dev, card):
     print(f"one rank of simulate_sharded, cumulus2d ({case.nx}, {case.nz}) "
           f"f32, {n} steps ({r['device']}, gloo, graphed, the exchange in "
           f"the step): bit for bit simulate's run (finals and the four "
-          f"precip series), {r['exchange_calls']} exchanges and "
+          f"precip series), {r['exchange_calls']} exchanges, "
+          f"{r['launches']['table_stage']} table_stage and "
           f"{r['launches']['fused_step']} fused_step launches counted, "
           f"{prof['host_exchange_calls']:.0f} host calls of the exchange a "
           f"profiled step; {r['ms_per_step']:.3f} ms/step (host clock; "
@@ -1831,7 +2045,7 @@ def phase_one_rank_in_step(dev, card):
           f"(profiler, {N_PROFILED} steps), capture {r['capture_ms']:.1f} "
           f"ms, peak {r['peak_bytes'] / 2**30:.2f} GiB; {run_s:.1f} s with "
           f"spawning [{card}]", flush=True)
-    return r["launches"]["fused_step"]
+    return r["launches"]
 
 
 def phase_cli(dev, card):
@@ -1918,10 +2132,8 @@ def phase_validation(dev, card):
         launches[name] = e["launches"]
         print(V.summary_line(name, e)
               + f"; launches {e['launches']} [{card}]", flush=True)
-        want = {"fused_rates", "fused_post"} if name == "aerosol1d" else {
-            "fused_step"}
-        if e["launches"] != {k: e["n_steps"] if k in want else 0
-                             for k in e["launches"]}:
+        want = SPLIT if name == "aerosol1d" else STEP
+        if e["launches"] != path_counts(e["launches"], e["n_steps"], want):
             raise AssertionError(f"{name}: launches {e['launches']}")
         if not e["pass"]:
             failed.append(name)
@@ -1975,9 +2187,9 @@ def phase_graphs_vs_eager(dev, card):
             "cumulus2d": CUMULUS2D, "orographic2d": OROGRAPHIC2D,
             "flagship": dataclasses.replace(CUMULUS2D, nx=FLAGSHIP_NX,
                                             cell_nx=CUMULUS2D.nx)}
-    row_kernels = {label: ("fused_step",) for label in wide}
-    row_kernels["aerosol1d"] = ("fused_rates", "fused_post")
-    row_kernels["fused driver"] = ("fused_kid_step",)
+    row_kernels = {label: STEP for label in wide}
+    row_kernels["aerosol1d"] = SPLIT
+    row_kernels["fused driver"] = KID
     dtype = torch.float32
     rows = {}
     for label, (n, i0, timed_names, check_names) in GRAPH_CELLS.items():
@@ -2153,9 +2365,10 @@ def two_windows(label, rows_a, run, card):
 def ranks_graphs_vs_eager(dev, card, label, case):
     """A cell of GRAPH_RANK_CELLS on N_RANKS ranks of this card, eager and
     then graphed, in float32: the same bits in the final state and every
-    stream, one exchange and one ``fused_step`` launch a step on each
-    rank; each rank's ms/step, exchange share, capture ms and peak device
-    memory in both modes.  Returns {mode: the ranks' numbers}."""
+    stream, one exchange and one ``table_stage`` and one ``fused_step``
+    launch a step on each rank; each rank's ms/step, exchange share,
+    capture ms and peak device memory in both modes.  Returns {mode: the
+    ranks' numbers}."""
     from kid_tpu_torch.dist import launch
     from kid_tpu_torch.driver.loop import KidState, initial_state
     n, i0, names, warm = GRAPH_RANK_CELLS[label]
@@ -2190,7 +2403,8 @@ def ranks_graphs_vs_eager(dev, card, label, case):
           f"{N_RANKS} ranks ({', '.join(r['device'] for r in g.ranks)}, "
           f"gloo), {n} steps from step {i0} after {warm} warm-up steps: the "
           f"same bits in the final state and {len(pairs) - 12} streams, one "
-          f"exchange and one fused_step launch a step on each rank; "
+          f"exchange and one table_stage and one fused_step launch a step "
+          f"on each rank; "
           + "; ".join(f"{m} ({secs[m]:.1f} s with spawning): "
                       f"{rank_line(runs[m].ranks)}" for m in runs)
           + f"; rank wall {ms['eager'] / ms['graphed']:.2f}x [{card}]",
@@ -2240,9 +2454,8 @@ def phase_oracle(dev, card):
         twin_s = time.perf_counter() - t0
         final, rain, _, launches = V.run(case, torch.float64, ORACLE_STEPS,
                                          dev, profile=False)
-        want = ({"fused_rates", "fused_post"} if case.micro.is_aerosol_aware
-                else {"fused_step"})
-        if launches != {k: ORACLE_STEPS * (k in want) for k in launches}:
+        want = SPLIT if case.micro.is_aerosol_aware else STEP
+        if launches != path_counts(launches, ORACLE_STEPS, want):
             raise AssertionError(f"oracle {name}: launches {launches}")
         e = scores.score_against_oracle(
             final, rain, {**fo, "ppt_rain": ppt["rain"]}, scores.RTOL,
@@ -2268,8 +2481,7 @@ def phase_oracle(dev, card):
         print(f"oracle {twod.twin_line(case.name, e)}; worst field {worst}; "
               f"launches { {k: v for k, v in e['launches'].items() if v} } "
               f"[{card}]", flush=True)
-        if e["launches"] != {k: ORACLE_2D[1] * (k == "fused_step")
-                             for k in e["launches"]}:
+        if e["launches"] != path_counts(e["launches"], ORACLE_2D[1], STEP):
             raise AssertionError(f"oracle {case.name}: launches "
                                  f"{e['launches']}")
         paths[f"oracle_{case.name}"] = e["launches"]
@@ -2360,8 +2572,8 @@ def phase_records(dev, card):
                     case, tables, st0, CHAOS_STEPS, noise, graphs))
                 got[mode + "_s"] = time.perf_counter() - t0
                 counts = read_counts()
-                if counts != {k: CHAOS_STEPS * (k == kernel)
-                              for k in counts}:
+                if counts != path_counts(counts, CHAOS_STEPS,
+                                         ("table_stage", kernel)):
                     raise AssertionError(f"{label} {mode}: launches "
                                          f"{counts}")
         finally:
@@ -2438,24 +2650,30 @@ def main() -> int:
     print(f"kernel build ({', '.join(kernels())}, in parallel): "
           f"{cuda_build.build():.1f} s", flush=True)
     res = phase_resources()
-    digests = {}
+    digests, paths = {}, {}
     phase_kernel_vs_plain(dev, digests)
     phase_split_vs_plain(dev, digests)
     phase_kid_step_vs_plain(dev, digests)
     timed("2d", phase_kernel_vs_plain, dev, digests, VS_PLAIN_2D,
           "fused_step nz=60")
-    records, default_ms = phase_main_path(dev, card, res)
-    records += phase_aerosol_main_path(dev, card, res)
-    records += phase_fused_driver_main_path(dev, card, default_ms, res)
+    records, default_ms, paths["mixed1"], x_mixed = phase_main_path(
+        dev, card, res)
+    aerosol, paths["aerosol1d"], x_aero = phase_aerosol_main_path(dev, card,
+                                                                  res)
+    fused, paths["fused_driver_mixed1"] = phase_fused_driver_main_path(
+        dev, card, default_ms, res)
+    records = [timed("2e", phase_table_stage, dev, card, digests,
+                     paths["mixed1"]["table_stage"], x_mixed, x_aero),
+               *records, *aerosol, *fused]
+    del x_mixed, x_aero
     timed("4", phase_end_to_end, dev)
     phase_fused_driver_end_to_end(dev)
-    by_path = {"mixed1": records[0]["launches"]}
-    by_path.update(timed("5", phase_2d, dev, card))
-    by_path["mp_driver_3d"] = timed("5b", phase_wrf, dev, card)["fused_step"]
-    paths = timed("5b batched", phase_batched, dev, card)
-    by_path["cumulus2d_2_ranks"] = timed("6a", phase_sharded_2d, dev, card)
-    by_path["flagship_window"] = timed("6b", phase_flagship, dev, card)
-    by_path["cumulus2d_1_rank_in_step"] = timed(
+    paths.update(timed("5", phase_2d, dev, card))
+    paths["mp_driver_3d"] = timed("5b", phase_wrf, dev, card)
+    paths.update(timed("5b batched", phase_batched, dev, card))
+    paths["cumulus2d_2_ranks"] = timed("6a", phase_sharded_2d, dev, card)
+    paths["flagship_window"] = timed("6b", phase_flagship, dev, card)
+    paths["cumulus2d_1_rank_in_step"] = timed(
         "6c", phase_one_rank_in_step, dev, card)
     validation = timed("7", phase_validation, dev, card)
     timed("8", phase_bench, dev)
@@ -2463,7 +2681,6 @@ def main() -> int:
     paths.update(timed("10", phase_oracle, dev, card))
     timed("11", phase_cli, dev, card)
     paths.update(timed("12", phase_records, dev, card))
-    records[0]["launches_by_path"] = by_path
     paths.update({f"validation_{k}": v for k, v in validation.items()})
     for name, counts in paths.items():
         for r in records:

@@ -6,11 +6,12 @@ one CUDA card.
                              [--budget NAME=A,B,C,D]... [--fmad]
 
 Builds the kernels of ``kid_tpu_torch/micro/csrc`` named by ``--kernels``
-(default all four: ``fused_step``, ``fused_kid_step``, ``fused_rates``,
-``fused_post``) as shipped, and once more per ``--budget``: each kernel's
-register-budget macros of ``csrc/thompson.cuh`` (blocks of 128 threads
-that must fit on an SM) for float32 mixed, float32 warm, float64 mixed
-and float64 warm, set to A, B, C and D (``BUDGET_MACROS``).  Each
+(default all five: ``fused_step``, ``fused_kid_step``, ``fused_rates``,
+``fused_post``, ``table_stage``) as shipped, and once more per
+``--budget``: each kernel's register-budget macros of
+``csrc/thompson.cuh`` (blocks of 128 threads that must fit on an SM) for
+float32 mixed, float32 warm, float64 mixed and float64 warm, set to A,
+B, C and D (``BUDGET_MACROS``).  Each
 ``--reference`` builds the same files from another source directory (for
 instance the ``csrc`` of an earlier commit), first, in the order given.
 ``--fmad`` adds a build of the shipped budget with ``-fmad=true``.  All
@@ -27,16 +28,20 @@ builds run in parallel.  Then, on the card:
     float64; mixed and warm; rate profiles on and off; for
     ``fused_rates`` and ``fused_post`` aerosol-aware, plus the cold batch
     of ``chip_smoke.py`` phase 2b, with ``fused_post`` fed the plain
-    path's p8 and lookups); each differing output is printed (``DIFFERS``)
-    and makes the script exit 1 once the timings are printed; the
+    path's p8 and lookups; for ``table_stage`` non-aerosol and
+    aerosol-aware, where the instantiation's third template flag, which
+    the SASS labels print as ``rates``, is the aerosol one); each
+    differing output is printed (``DIFFERS``) and makes the script exit
+    1 once the timings are printed; the
     ``-fmad=true`` build rounds otherwise, so its differing outputs are
     counted, not gated;
   * ms/launch of each build, in turns (first to last, then last to
     first), on the main paths' own inputs at (8192, 120) float32 after a
-    150-step spin-up (``fused_step`` from mixed1's default step,
-    ``fused_kid_step`` from its fused driver, ``fused_rates`` and
-    ``fused_post`` from aerosol1d's step), and on seeded warm and float64
-    batches at (8192, 120).
+    150-step spin-up (``table_stage`` and ``fused_step`` from mixed1's
+    default step, ``fused_kid_step`` from its fused driver,
+    ``table_stage``, ``fused_rates`` and ``fused_post`` from aerosol1d's
+    step; the table stage's input is the first 13 rows of the next
+    kernel's), and on seeded warm and float64 batches at (8192, 120).
 
 Imports the port (``kid_tpu_torch``) and ``chip_smoke`` only; builds into
 ``build/kid_tpu_torch/budget/`` at the repository root.
@@ -58,13 +63,15 @@ import torch
 import chip_smoke as C
 from kid_tpu_torch.micro import cuda_build
 
-STEMS = ("fused_step", "fused_kid_step", "fused_rates", "fused_post")
+STEMS = ("fused_step", "fused_kid_step", "fused_rates", "fused_post",
+         "table_stage")
 _ROWS = ("F32_MIXED", "F32_WARM", "F64_MIXED", "F64_WARM")
 # each kernel's budget macros in csrc/thompson.cuh, in _ROWS order
 BUDGET_MACROS = {
     stem: tuple(f"{prefix}MIN_BLOCKS_{r}" for r in _ROWS)
     for stem, prefix in (("fused_step", ""), ("fused_kid_step", ""),
-                         ("fused_rates", "RATES_"), ("fused_post", "POST_"))}
+                         ("fused_rates", "RATES_"), ("fused_post", "POST_"),
+                         ("table_stage", "TABLE_"))}
 OUT = Path(__file__).resolve().parent / "build" / "kid_tpu_torch" / "budget"
 F32, F64 = torch.float32, torch.float64
 
@@ -99,9 +106,16 @@ def build_all(builds, stems):
                    for stem in stems} for name, *_ in builds}
 
 
+SHIPPED = cuda_build.kernel_function
+
+
 def using(libs):
-    """Route the wrappers' launches to the libraries ``libs``."""
+    """Route the wrappers' launches of ``libs``' kernels to them, and the
+    other kernels' to the shipped build: a timed input's path launches
+    kernels that ``--kernels`` may not name."""
     def kernel_function(stem, dtype, argtypes):
+        if stem not in libs:
+            return SHIPPED(stem, dtype, argtypes)
         suffix = "f32" if dtype == F32 else "f64"
         fn = getattr(libs[stem], f"kid_{stem}_{suffix}")
         fn.argtypes = argtypes
@@ -191,10 +205,25 @@ def kid_launch(x, prof, m: float, case, rates: bool):
                                         rates)
 
 
+def table_launch(chans, tables, cfg, dt):
+    """A launch of ``table_stage`` on its 13 input channels ``chans``
+    (ColumnState's, then pres), returning its output."""
+    import kid_tpu_torch.micro.table_stage as TS
+    from kid_tpu_torch.micro import solver as S
+
+    def launch():
+        x = chans[0]
+        out = torch.empty((len(S.tv_keys(cfg)), *x.shape), dtype=x.dtype,
+                          device=x.device)
+        TS.launch(chans, tables, out, cfg, dt)
+        return (out,)
+    return launch
+
+
 def step_batches(dev, stems):
-    """Seeded inputs of ``fused_step`` and ``fused_kid_step``: [(label,
-    stem, launch)] where ``launch()`` runs the routed kernel and returns
-    its outputs."""
+    """Seeded inputs of ``fused_step``, ``fused_kid_step`` and
+    ``table_stage``: [(label, stem, launch)] where ``launch()`` runs the
+    routed kernel and returns its outputs."""
     import kid_tpu_torch.micro.fused_kid_step as FK
     import kid_tpu_torch.micro.fused_step as F
     from kid_tpu_torch.config import MicroConfig
@@ -202,7 +231,7 @@ def step_batches(dev, stems):
     from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.tables.cache import get_tables
     out = []
-    if not {"fused_step", "fused_kid_step"} & stems:
+    if not {"fused_step", "fused_kid_step", "table_stage"} & stems:
         return out
     for nz in (33, 120, 256):
         for dtype in (F32, F64):
@@ -227,6 +256,13 @@ def step_batches(dev, stems):
                     if "fused_kid_step" in stems:
                         out.append((label, "fused_kid_step",
                                     kid_launch(kx, prof, m, case, rates)))
+                if "table_stage" in stems:
+                    for aero in (False, True):
+                        acfg = MicroConfig(iiwarm=warm, is_aerosol_aware=aero)
+                        out.append((f"{_label(nz, dtype, warm)} aero="
+                                    f"{int(aero)}", "table_stage",
+                                    table_launch([*st, pres], tables, acfg,
+                                                 10.0)))
     return [o for o in out if o[1] in stems]
 
 
@@ -290,14 +326,14 @@ def timed_inputs(dev, stems):
     from kid_tpu_torch.micro import solver as S
     from kid_tpu_torch.tables.cache import get_tables
     out = []
-    if {"fused_step", "fused_kid_step"} & stems:
+    if {"fused_step", "fused_kid_step", "table_stage"} & stems:
         case = dataclasses.replace(MIXED1, nx=C.MAIN_NX)
         st, _ = run_case(case, F32, n_steps=C.N_SPIN, device=dev)
         tables = S.device_tables(get_tables(iiwarm=False), F32, dev)
         last, restore = C.recording([(F, "pack_inputs"),
                                      (FK, "pack_kid_inputs")])
         try:
-            if "fused_step" in stems:
+            if {"fused_step", "table_stage"} & stems:
                 simulate(st, tables, case, 1, istep0=C.N_SPIN, device=dev,
                          graphs=False)
             if "fused_kid_step" in stems:
@@ -310,6 +346,10 @@ def timed_inputs(dev, stems):
         finally:
             restore()
         label = "mixed1 (8192, 120) f32"
+        if "table_stage" in stems:
+            out.append((label, "table_stage", table_launch(
+                list(last["pack_inputs"][:13]), tables, case.micro,
+                case.dt)))
         if "fused_step" in stems:
             out.append((label, "fused_step",
                         lambda x=last["pack_inputs"], cfg=case.micro,
@@ -318,7 +358,7 @@ def timed_inputs(dev, stems):
             kx, prof = last["pack_kid_inputs"]
             out.append((label, "fused_kid_step", kid_launch(
                 kx, prof, case.time_modulation(C.N_SPIN, F32), case, False)))
-    if {"fused_rates", "fused_post"} & stems:
+    if {"fused_rates", "fused_post", "table_stage"} & stems:
         case = dataclasses.replace(AEROSOL1D, nx=C.MAIN_NX)
         st, _ = run_case(case, F32, n_steps=C.N_SPIN, device=dev)
         tables = S.device_tables(get_tables(iiwarm=False), F32, dev)
@@ -329,13 +369,23 @@ def timed_inputs(dev, stems):
                      graphs=False)
         finally:
             restore()
-        out += split_launches("aerosol1d (8192, 120) f32",
-                              last["pack_rates_inputs"],
+        label = "aerosol1d (8192, 120) f32"
+        if "table_stage" in stems:
+            out.append((label, "table_stage", table_launch(
+                list(last["pack_rates_inputs"][:13]), tables, case.micro,
+                case.dt)))
+        out += split_launches(label, last["pack_rates_inputs"],
                               last["pack_post_inputs"], case.micro, case.dt,
                               False, stems)
     for dtype, warm in ((F32, True), (F64, False), (F64, True)):
         label = f"seeded (8192, 120) {str(dtype)[6:]} " \
                 f"{'warm' if warm else 'mixed'}"
+        if "table_stage" in stems:
+            cfg = MicroConfig(iiwarm=warm)
+            tabs = S.device_tables(get_tables(iiwarm=warm), dtype, dev)
+            b, pres, _ = C.make_batch(C.MAIN_NX, 120, 0, dtype, dev)
+            out.append((label, "table_stage",
+                        table_launch([*b, pres], tabs, cfg, 10.0)))
         if "fused_step" in stems:
             cfg = MicroConfig(iiwarm=warm)
             tabs = S.device_tables(get_tables(iiwarm=warm), dtype, dev)
@@ -398,8 +448,10 @@ def main() -> int:
                         for rates in (False, True):
                             r = resources(libs[name][stem], stem, nz, dtype,
                                           warm, rates)
-                            print(f"resources {name} {stem} "
-                                  f"{_label(nz, dtype, warm, rates)}: "
+                            label = _label(nz, dtype, warm, rates)
+                            if stem == "table_stage":   # its aerosol flag
+                                label = label.replace("rates=", "aero=")
+                            print(f"resources {name} {stem} {label}: "
                                   f"{r[0]} regs, {r[1]} spill bytes, "
                                   f"{r[2]} static shared bytes, {r[3]} "
                                   f"blocks/SM", flush=True)

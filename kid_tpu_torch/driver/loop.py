@@ -40,7 +40,6 @@ import torch
 from .. import constants as c
 from ..device import check_on, resolve_device
 from ..micro import ColumnState, batched_microphysics, cuda_build
-from ..micro import solver as S
 from ..micro.graphs import GRAPH_DEVICE_TYPES, LRUCache, capture
 from ..micro.solver import device_tables
 from ..tables.cache import get_tables
@@ -196,7 +195,8 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
     fused_driver = (one_d and not cfg.is_aerosol_aware
                     and os.environ.get(FUSED_DRIVER_ENV, "0") == "1")
     if fused_driver:     # imported here: the module imports this one
-        from ..micro.fused_kid_step import fused_kid_step
+        from ..micro.fused_kid_step import fused_kid_step, tv_out
+        from ..micro.table_stage import table_stage
     adv_fields = advected_fields(cfg)
     adv_idx = tuple(KidState._fields.index(f) for f in adv_fields)
 
@@ -226,10 +226,11 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
             nr=prov_named["nr"], nc=prov_named["nc"],
             nwfa=prov_named["nwfa"], nifa=prov_named["nifa"])
         if fused_driver:
-            # the provisional state above feeds only the table stage; the
-            # kernel derives its own from the raw state
-            pro, idx = S._prologue(micro_in, pres2, cfg)
-            tv = S._table_stage(pro, idx, tables, cfg, float(dt))
+            # the provisional state above feeds only the table stage, which
+            # writes into the rows the kernel's input ends with; the kernel
+            # derives its own state from the raw one
+            tv = table_stage(micro_in, pres2, tables, cfg, float(dt),
+                             out=tv_out(st, cfg))
             new, ppt, diag = fused_kid_step(
                 st, w_pat[0], m, tv, pres2[0], exner, rho0, dz, cfg,
                 float(dt), want_rates)

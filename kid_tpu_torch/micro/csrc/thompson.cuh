@@ -1,10 +1,13 @@
 // Thompson09 microphysics for one cell of a column, as device stage
-// functions shared by the three kernels of this directory:
+// functions shared by the kernels of this directory:
 //
+//   table_stage.cu  prologue -> lookup indices -> table gathers and the
+//                   rates that consume them (the tv channels)
 //   fused_step.cu   prologue -> rates -> post   (non-aerosol, phases 2-20)
 //   fused_rates.cu  prologue -> rates, store p8 (aerosol, phases 2-11)
 //   fused_post.cu   prologue, load p8 and the phase-14 lookups -> post
 //                   (aerosol, phases 12-20)
+//   fused_kid_step.cu  advection, Exner map, prologue -> rates -> post
 //
 // The stages transcribe kid_tpu_torch/micro/solver.py expression by
 // expression, in the same association order: ``prologue`` is
@@ -39,7 +42,8 @@
 // of 128 threads per SM, per kernel and per (dtype, warm/mixed), chosen
 // on the card with kernel_budget.py: MIN_BLOCKS_* for fused_step.cu and
 // fused_kid_step.cu (f32 mixed 5: 96 registers), RATES_MIN_BLOCKS_* for
-// fused_rates.cu (5: 96) and POST_MIN_BLOCKS_* for fused_post.cu (8: 64).
+// fused_rates.cu (5: 96), POST_MIN_BLOCKS_* for fused_post.cu (8: 64)
+// and TABLE_MIN_BLOCKS_* for table_stage.cu.
 // The aerosol kernels also skip, warp by warp, the chains whose values
 // their masks discard (``guard``) and plan powc at compile time (POWC).
 // Nothing but the exchange slots (and fused_kid_step's raw column) lives
@@ -1798,9 +1802,9 @@ inline int block_threads(int nz) {
 
 // The register budgets: how many blocks of 128 threads must fit on an SM,
 // by dtype and warm/mixed, for fused_step.cu and fused_kid_step.cu
-// (MIN_BLOCKS_*), fused_rates.cu (RATES_MIN_BLOCKS_*) and fused_post.cu
-// (POST_MIN_BLOCKS_*).  Chosen on the card (PERF.md); kernel_budget.py
-// rebuilds with -D to time others.
+// (MIN_BLOCKS_*), fused_rates.cu (RATES_MIN_BLOCKS_*), fused_post.cu
+// (POST_MIN_BLOCKS_*) and table_stage.cu (TABLE_MIN_BLOCKS_*).  Chosen on
+// the card (PERF.md); kernel_budget.py rebuilds with -D to time others.
 #ifndef MIN_BLOCKS_F32_MIXED
 #define MIN_BLOCKS_F32_MIXED 5
 #endif
@@ -1837,6 +1841,18 @@ inline int block_threads(int nz) {
 #ifndef POST_MIN_BLOCKS_F64_WARM
 #define POST_MIN_BLOCKS_F64_WARM 4
 #endif
+#ifndef TABLE_MIN_BLOCKS_F32_MIXED
+#define TABLE_MIN_BLOCKS_F32_MIXED 6
+#endif
+#ifndef TABLE_MIN_BLOCKS_F32_WARM
+#define TABLE_MIN_BLOCKS_F32_WARM 8
+#endif
+#ifndef TABLE_MIN_BLOCKS_F64_MIXED
+#define TABLE_MIN_BLOCKS_F64_MIXED 4
+#endif
+#ifndef TABLE_MIN_BLOCKS_F64_WARM
+#define TABLE_MIN_BLOCKS_F64_WARM 4
+#endif
 // the budget of one (dtype, warm/mixed) among a kernel's four
 template <typename T, bool WARM>
 constexpr int pick_budget(int f32_mixed, int f32_warm, int f64_mixed,
@@ -1856,6 +1872,10 @@ template <typename T, bool WARM>
 constexpr int kPostMinBlocks = pick_budget<T, WARM>(
     POST_MIN_BLOCKS_F32_MIXED, POST_MIN_BLOCKS_F32_WARM,
     POST_MIN_BLOCKS_F64_MIXED, POST_MIN_BLOCKS_F64_WARM);
+template <typename T, bool WARM>
+constexpr int kTableMinBlocks = pick_budget<T, WARM>(
+    TABLE_MIN_BLOCKS_F32_MIXED, TABLE_MIN_BLOCKS_F32_WARM,
+    TABLE_MIN_BLOCKS_F64_MIXED, TABLE_MIN_BLOCKS_F64_WARM);
 
 // the second argument of __launch_bounds__(block, ...) for a kernel that
 // must fit ``per128`` blocks of 128 threads on an SM: the same register

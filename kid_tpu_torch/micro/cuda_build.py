@@ -70,6 +70,14 @@ def constants_header() -> str:
                 lines.append(f"constexpr double {name}_{i} = {_lit(e)};")
     derived = {
         "RR1": c.R_R_AXIS[0], "RS1": c.R_S_AXIS[0], "RG1": c.R_G_AXIS[0],
+        "RC1": c.R_C_AXIS[0], "RI1": c.R_I_AXIS[0], "NTI1": c.NT_I_AXIS[0],
+        # the table stage's log-spaced bins (tables.index.log_bin_index)
+        "DR1": c.DR_BINS[0], "DS1": c.DS_BINS[0],
+        "RW_SCALE": float(c.NBR) / math.log(S._DRN / S._DR1),
+        "SW_SCALE": float(c.NBS) / math.log(S._DSN / S._DS1),
+        # the exponential-PSD slopes of the N0 indices (solver._prologue)
+        "LAM_EXP_R_FAC": (S.CRG[3] * c.ORG2 * c.ORG1) ** c.BM_R,
+        "LAM_EXP_G_FAC": (S.CGG[3] * c.OGG2 * c.OGG1) ** c.BM_G,
         "LAMG_FAC": (S.CGG[3] * c.OGG2 * c.OGG1) ** c.OBMG,
         "D0R_CUBED": c.D0R ** 3,
         "LN10_PY": 2.302585092994046,
@@ -201,6 +209,47 @@ def check_packed(x, n_in: int, name: str):
     return ncol, nz
 
 
+def tail_rows(n_head: int, n_tail: int, like) -> torch.Tensor:
+    """The last ``n_tail`` rows of a new (n_head + n_tail, *like.shape)
+    tensor of ``like``'s dtype and device: where the table stage writes
+    the channels that a kernel's packed input ends with, so that ``pack``
+    copies only the first ``n_head``."""
+    buf = torch.empty((n_head + n_tail, *like.shape), dtype=like.dtype,
+                      device=like.device)
+    return buf[n_head:]
+
+
+def _tail_of(tail, n_head: int, shape):
+    """The buffer whose last rows ``tail`` are (``tail_rows``), or None."""
+    base = tail[0]._base
+    if (base is None or tuple(base.shape) != (n_head + len(tail), *shape)
+            or not base.is_contiguous()):
+        return None
+    for i, t in enumerate(tail):
+        if (t._base is not base or t.shape != shape
+                or t.stride() != base.stride()[1:]
+                or t.storage_offset() != base.storage_offset()
+                + (n_head + i) * base.stride(0)):
+            return None
+    return base
+
+
+def pack(head, tail, shape) -> torch.Tensor:
+    """A kernel's packed input, one contiguous (len(head) + len(tail),
+    *shape) tensor: the ``head`` channels, then the ``tail`` channels,
+    each broadcast to ``shape``.  Where ``tail`` is already the last rows
+    of such a tensor (``tail_rows``), the head is copied into it and it is
+    returned; otherwise every channel is stacked into a new one."""
+    shape = tuple(shape)
+    head = [torch.broadcast_to(t, shape) for t in head]
+    base = _tail_of(tail, len(head), shape)
+    if base is None:
+        return torch.stack(head + [torch.broadcast_to(t, shape)
+                                   for t in tail])
+    torch.stack(head, out=base[:len(head)])
+    return base
+
+
 def kernel_function(stem: str, dtype, argtypes) -> ctypes._CFuncPtr:
     """C function ``kid_<stem>_f32`` or ``kid_<stem>_f64`` of
     ``csrc/<stem>.cu`` with its argument types set (pointers and the
@@ -217,7 +266,9 @@ def resources(stem: str, nz: int, dtype, iiwarm: bool,
     """What the card gives the instantiation of ``csrc/<stem>.cu`` that a
     launch at ``nz`` levels takes: registers per thread, local (spill)
     bytes per thread, static shared bytes per block and active blocks per
-    SM at its block size (``kid_<stem>_resources``)."""
+    SM at its block size (``kid_<stem>_resources``).  For ``table_stage``,
+    which has no rate profiles, ``want_rates`` selects the aerosol-aware
+    instantiation."""
     fn = getattr(LIBRARIES.get(stem), f"kid_{stem}_resources")
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -240,8 +291,9 @@ def build() -> float:
 def wrappers() -> dict:
     """Every kernel's wrapper by kernel name; each counts its launches in
     ``.launches``."""
-    from . import fused_kid_step, fused_step, split_step
-    return {"fused_step": fused_step.fused_step,
+    from . import fused_kid_step, fused_step, split_step, table_stage
+    return {"table_stage": table_stage.table_stage,
+            "fused_step": fused_step.fused_step,
             "fused_rates": split_step.fused_rates,
             "fused_post": split_step.fused_post,
             "fused_kid_step": fused_kid_step.fused_kid_step}

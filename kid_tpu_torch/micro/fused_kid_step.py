@@ -44,16 +44,21 @@ def _check_cfg(cfg: MicroConfig):
         raise ValueError("fused_kid_step takes non-aerosol configs")
 
 
+def tv_out(st: KidState, cfg: MicroConfig):
+    """The tv rows of a new packed input ``x`` (see ``pack_kid_inputs``),
+    for the table stage to write into."""
+    return cuda_build.tail_rows(N_KID, len(S.tv_keys(cfg)), st.qv)
+
+
 def pack_kid_inputs(st: KidState, tv, w_pat_prof, pres_prof, exner_prof,
                     rho0_prof, dz_prof, cfg: MicroConfig):
     """The kernel's inputs: ``x``, one contiguous (12 + ntv, ncol, nz)
     tensor of the ``KidState`` channels in their order and the
-    ``solver.tv_keys(cfg)`` channels, and ``prof``, (5, nz + 1): the
-    rho0*w face pattern, then pres, exner, rho0 and dz, each padded by
-    one."""
-    shape = st.qv.shape
-    x = torch.stack([torch.broadcast_to(t, shape)
-                     for t in [*st] + [tv[k] for k in S.tv_keys(cfg)]])
+    ``solver.tv_keys(cfg)`` channels (where ``tv`` holds the rows of
+    ``tv_out``, only the 12 are copied, into the tensor those rows belong
+    to), and ``prof``, (5, nz + 1): the rho0*w face pattern, then pres,
+    exner, rho0 and dz, each padded by one."""
+    x = cuda_build.pack([*st], [tv[k] for k in S.tv_keys(cfg)], st.qv.shape)
 
     def row(a, pad):
         r = torch.as_tensor(a, dtype=x.dtype, device=x.device).reshape(-1)

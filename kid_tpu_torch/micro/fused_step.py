@@ -42,12 +42,19 @@ def build() -> float:
     return cuda_build.build()
 
 
+def tv_out(state: ColumnState, cfg: MicroConfig):
+    """The tv rows of a new packed input (see ``pack_inputs``), for the
+    table stage to write into."""
+    return cuda_build.tail_rows(N_STATE + 2, len(S.tv_keys(cfg)), state.qv)
+
+
 def pack_inputs(state: ColumnState, pres, dzq, tv, cfg: MicroConfig):
     """The kernel's one contiguous input, (14 + ntv, ncol, nz): the 12
-    state channels, pres, dzq and the ``solver.tv_keys(cfg)`` channels."""
-    shape = state.qv.shape
-    chans = [*state, pres, dzq] + [tv[k] for k in S.tv_keys(cfg)]
-    return torch.stack([torch.broadcast_to(t, shape) for t in chans])
+    state channels, pres, dzq and the ``solver.tv_keys(cfg)`` channels.
+    Where ``tv`` holds the rows of ``tv_out``, only the first 14 are
+    copied, into the tensor those rows belong to."""
+    return cuda_build.pack([*state, pres, dzq],
+                           [tv[k] for k in S.tv_keys(cfg)], state.qv.shape)
 
 
 def launch_packed(x, cfg: MicroConfig, dt_f: float, want_rates: bool):

@@ -7,7 +7,10 @@ branch-free tensor code over a batch of (ncol, nz) columns:
   * ``_prologue``: phases 2-7 plus the PSD shapes and lookup indices;
   * ``_table_stage``: the table lookups and the rates that consume them,
     as plain torch gathers (the reference's banded and one-hot forms were
-    TPU lowerings of the same exact selections);
+    TPU lowerings of the same exact selections).  The two together are
+    the plain version of the hand-written CUDA kernel
+    ``table_stage.table_stage``, the port's counterpart of the fusion the
+    reference's ``jit`` makes of them;
   * ``core_from_tables``: phases 2-20 from the raw state and the
     table-stage channels.  This is the plain version of the hand-written
     CUDA kernel (``fused_step.fused_step``), which computes the same
@@ -18,9 +21,9 @@ branch-free tensor code over a batch of (ncol, nz) columns:
     (torch ops) and ``post_from_p8`` (phases 12-20, plain version of
     ``split_step.fused_post``).
 
-``batched_microphysics`` runs the table stage in torch ops and then the
-kernel path: ``fused_step``, or ``fused_rates`` -> lookups -> ``fused_post``
-for aerosol-aware configurations.  Each wrapper launches its kernel for a
+``batched_microphysics`` runs the kernel path: ``table_stage``, then
+``fused_step``, or ``fused_rates`` -> lookups -> ``fused_post`` for
+aerosol-aware configurations.  Each wrapper launches its kernel for a
 CUDA tensor and runs its plain version for a CPU tensor.  Phase numbers
 follow SURVEY.md section 3.2b.
 """
@@ -155,6 +158,16 @@ def _nuc_table(dtype, device):
 def _nuc_rows(nu_c, dtype):
     """The 6 nu_c-indexed coefficient columns (exact row selection)."""
     return _nuc_table(dtype, nu_c.device)[nu_c].unbind(-1)
+
+
+def masked_rows(name: str, mask, rows):
+    """The gathered table ``rows``, which no output of ``_table_stage``
+    reads where ``mask`` (broadcast against them) is false.  The table
+    stage's kernel (csrc/table_stage.cu) skips the gather there;
+    tests/test_torch_table_stage.py replaces this identity with one that
+    spoils ``rows`` outside ``mask`` and checks that every tv channel
+    keeps its bits."""
+    return rows
 
 
 def guarded(name: str, mask, value):
@@ -1030,7 +1043,9 @@ def _table_stage(pro, idx, tables: DeviceTables, cfg: MicroConfig,
     """Table lookups and their consumer rates (f90:1715-1726, 1902-1913,
     1961-2018, 2065-2086, 2135-2148) as plain torch gathers.  Returns the
     ``tv`` channel dict (``tv_keys(cfg)``): ef_rw, and for mixed phase
-    ef_sw, tide and the 15 finished table-consuming rates."""
+    ef_sw, tide and the 15 finished table-consuming rates.  With
+    ``_prologue`` this is the plain version of ``table_stage.table_stage``,
+    which computes the same function as one CUDA kernel."""
     dtype = pro["qv"].dtype
     _, odts = _dt_pair(dt_f, dtype)
     nt_c = cfg.nt_c
@@ -1046,17 +1061,24 @@ def _table_stage(pro, idx, tables: DeviceTables, cfg: MicroConfig,
     rs_on = (rr >= _RR1) & (rs >= _RS1)
     rg_on = (rr >= _RR1) & (rg >= _RG1)
     frz_tab = t_lt_0 & (rr > _RR1)
+    wfz_tab = t_lt_0 & (rc > _RC1)
+    ice_on = t_lt_0 & (pro["qi1d"] > c.R1)
+    # each gather's rows are read only where its consumers' mask holds
     lin_s = ((idx["s"] * c.NTB_T + idx["t"]) * c.NTB_R1 + idx_r1) \
         * c.NTB_R + idx_r
-    rv = tables.racs[lin_s].unbind(-1)
+    rv = masked_rows("racs", rs_on[..., None],
+                     tables.racs[lin_s]).unbind(-1)
     lin_g = ((idx["g1"] * c.NTB_G + idx["g"]) * c.NTB_R1 + idx_r1) \
         * c.NTB_R + idx_r
-    gv = tables.racg[lin_g].unbind(-1)
-    fv = tables.qrfz[(idx_r * c.NTB_R1 + idx_r1) * 45 + idx_tc].unbind(-1)
-    cv = tables.qcfz[:, idx["c"] * 45 + idx_tc]
+    gv = masked_rows("racg", rg_on[..., None],
+                     tables.racg[lin_g]).unbind(-1)
+    fv = masked_rows("qrfz", frz_tab[..., None], tables.qrfz[
+        (idx_r * c.NTB_R1 + idx_r1) * 45 + idx_tc]).unbind(-1)
+    cv = masked_rows("qcfz", wfz_tab, tables.qcfz[:, idx["c"] * 45 + idx_tc])
     iv = tables.iaus[:, idx["i"] * c.NTB_I1 + idx["i1"]]
+    tide = iv[0]
+    iv = (tide, *masked_rows("iaus", ice_on, iv[1:]))
 
-    ice_on = t_lt_0 & (pro["qi1d"] > c.R1)
     idx_i_top = idx["i"] == c.NTB_I - 1
     # rain<->snow collection via the 5 pre-summed combinations
     # (f90:1961-1997): ma, mb, mc, n_cold, n_warm
@@ -1098,7 +1120,6 @@ def _table_stage(pro, idx, tables: DeviceTables, cfg: MicroConfig,
                           torch.where(frz_hom, nr * odts, 0.0))
 
     # cloud water freezing (f90:2077-2086), order _QCFZ
-    wfz_tab = t_lt_0 & (rc > _RC1)
     wfz_hom = t_lt_0 & ~(rc > _RC1) & (rc > c.R1) & (temp < c.HGFR)
     pri_wfz = torch.where(wfz_tab, torch.minimum(rc * odts, cv[0] * odts),
                           torch.where(wfz_hom, rc * odts, 0.0))
@@ -1122,7 +1143,7 @@ def _table_stage(pro, idx, tables: DeviceTables, cfg: MicroConfig,
         torch.where(iau_small, 0.0, pni_iau_t)), 0.0)
 
     return dict(
-        ef_rw=ef_rw, ef_sw=ef_sw, tide=iv[0],
+        ef_rw=ef_rw, ef_sw=ef_sw, tide=tide,
         prr_rcs=prr_rcs, prs_rcs=prs_rcs, prg_rcs=prg_rcs,
         pnr_rcs=pnr_rcs, prg_rcg=prg_rcg, prr_rcg=prr_rcg,
         pnr_rcg=pnr_rcg, prg_rfz=prg_rfz, pri_rfz=pri_rfz,
@@ -1617,11 +1638,12 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
                         want_rates: bool = True):
     """One microphysics timestep on a batch of (ncol, nz) columns.
 
-    ``_prologue`` (lookup indices) -> ``_table_stage`` (torch gathers and
-    the rates that consume them) -> ``fused_step``; for aerosol-aware
-    configs -> ``fused_rates`` -> ``aerosol_lookup_stage`` (torch ops)
-    -> ``fused_post``.  Each wrapper launches its CUDA kernel for a CUDA
-    tensor and runs its plain version for a CPU tensor.  ``w1d`` (the
+    ``table_stage`` (``_prologue`` and ``_table_stage``: the lookup
+    indices, the gathers and the rates that consume them) -> ``fused_step``;
+    for aerosol-aware configs -> ``fused_rates`` ->
+    ``aerosol_lookup_stage`` (torch ops) -> ``fused_post``.  Each wrapper
+    launches its CUDA kernel for a CUDA tensor and runs its plain version
+    for a CPU tensor.  ``w1d`` (the
     cell-centred vertical velocity, m/s) feeds aerosol activation only.
     Returns (new ColumnState, Precip, dict of process-rate profiles)."""
     from . import fused_step as F
@@ -1629,9 +1651,12 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
     if cfg.is_aerosol_aware and w1d is None:
         raise ValueError("aerosol-aware configs need the vertical "
                          "velocity w1d")
+    from . import table_stage as T
     dt_f = float(dt)
-    pro, idx = _prologue(state, pres, cfg)
-    tv = _table_stage(pro, idx, tables, cfg, dt_f)
+    # the tv channels go into the rows the next kernel's input ends with
+    kernel = A if cfg.is_aerosol_aware else F
+    tv = T.table_stage(state, pres, tables, cfg, dt_f,
+                       out=kernel.tv_out(state, cfg))
     if not cfg.is_aerosol_aware:
         return F.fused_step(state, pres, dzq, tv, cfg, dt_f, want_rates)
     p8 = A.fused_rates(state, pres, tv, cfg, dt_f, want_rates)

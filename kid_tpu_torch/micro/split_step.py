@@ -51,12 +51,19 @@ def _check(x, cfg: MicroConfig, n_in: int, name: str):
 
 # ---- kernel A: phases 2-11 ------------------------------------------------
 
+def tv_out(state: ColumnState, cfg: MicroConfig):
+    """The tv rows of a new packed input of kernel A (see
+    ``pack_rates_inputs``), for the table stage to write into."""
+    return cuda_build.tail_rows(N_STATE + 1, len(S.tv_keys(cfg)), state.qv)
+
+
 def pack_rates_inputs(state: ColumnState, pres, tv, cfg: MicroConfig):
     """Kernel A's one contiguous input, (13 + ntv, ncol, nz): the 12
-    state channels, pres and the ``solver.tv_keys(cfg)`` channels."""
-    shape = state.qv.shape
-    chans = [*state, pres] + [tv[k] for k in S.tv_keys(cfg)]
-    return torch.stack([torch.broadcast_to(t, shape) for t in chans])
+    state channels, pres and the ``solver.tv_keys(cfg)`` channels.  Where
+    ``tv`` holds the rows of ``tv_out``, only the first 13 are copied,
+    into the tensor those rows belong to."""
+    return cuda_build.pack([*state, pres], [tv[k] for k in S.tv_keys(cfg)],
+                           state.qv.shape)
 
 
 def launch_rates_packed(x, cfg: MicroConfig, dt_f: float, want_rates: bool):

@@ -12,16 +12,16 @@ then on 2 and 4 NCCL ranks (``dist.launch.default_layout``), each rank
 graphed (its step, the halo exchange first, replayed as one CUDA graph)
 and eager.  Every sharded run must equal the single process bit for bit
 (the final fields and the four precip series), with the exchange in the
-step, one halo exchange and one ``fused_step`` launch a step on every
-rank, and no host time in the exchange when graphed (the replays hold
-it).  Then each case once more, graphed on the most ranks, with
-``PROFILED`` more steps under the profiler, which must see one NCCL
-kernel a step and no host call of the exchange.  Prints the cards'
-names and power limits, then one JSON line per run with each rank's
-ms/step (host clock, its own window), the exchange's host share, capture
-ms and peak device memory, and for the profiled runs the NCCL kernels'
-device ms a step and their share of the rank's device ms a step; exits 1
-on a fault, 2 with fewer than two cards.
+step, one halo exchange and one ``table_stage`` and one ``fused_step``
+launch a step on every rank, and no host time in the exchange when
+graphed (the replays hold it).  Then each case once more, graphed on the
+most ranks, with ``PROFILED`` more steps under the profiler, which must
+see one NCCL kernel a step and no host call of the exchange.  Prints the
+cards' names and power limits, then one JSON line per run with each
+rank's ms/step (host clock, its own window), the exchange's host share,
+capture ms and peak device memory, and for the profiled runs the NCCL
+kernels' device ms a step and their share of the rank's device ms a
+step; exits 1 on a fault, 2 with fewer than two cards.
 """
 from __future__ import annotations
 
@@ -40,6 +40,8 @@ from kid_tpu_torch.dist import launch  # noqa: E402
 from kid_tpu_torch.driver.cases import CUMULUS2D  # noqa: E402
 
 FLAGSHIP = dataclasses.replace(CUMULUS2D, nx=131072, cell_nx=CUMULUS2D.nx)
+# the kernels of a step, each launched once
+STEP_KERNELS = ("table_stage", "fused_step")
 # (case, steps timed, warm-up steps)
 RUNS = ((CUMULUS2D, 300, 20), (FLAGSHIP, 20, 20))
 PROFILED = 5           # steps of each rank's profiled window
@@ -47,8 +49,9 @@ PROFILED = 5           # steps of each rank's profiled window
 
 def faults(one, run, n, graphs) -> list:
     """What keeps ``run`` from being the single process's bits, with the
-    exchange in the step, one exchange and one ``fused_step`` launch a
-    step on every rank, no host time in the exchange if graphed, and, in
+    exchange in the step, one exchange and one launch of each of
+    ``STEP_KERNELS`` a step on every rank, no host time in the exchange
+    if graphed, and, in
     a profiled window, one NCCL kernel a step and no host call of the
     exchange if graphed (one a step if eager)."""
     bad = [k for k in one.fields if not np.array_equal(one.fields[k],
@@ -59,7 +62,7 @@ def faults(one, run, n, graphs) -> list:
     for r in run.ranks:
         prof = r.get("profile")
         if (r["placement"] != "step" or r["exchange_calls"] != n
-                or r["launches"] != {k: n if k == "fused_step" else 0
+                or r["launches"] != {k: n if k in STEP_KERNELS else 0
                                      for k in r["launches"]}
                 or (graphs and r["exchange_seconds"] != 0.0)
                 or (prof is not None

@@ -34,6 +34,7 @@ from kid_tpu_torch.micro import fused_step as F
 from kid_tpu_torch.micro import graphs as G
 from kid_tpu_torch.micro import solver as S
 from kid_tpu_torch.micro import split_step as A
+from kid_tpu_torch.micro import table_stage as TS
 from kid_tpu_torch.tables.cache import get_tables
 from test_torch_diag_wrf import _mixed_tile
 from test_torch_graph_loop import NoHostSync, _stub_kernels
@@ -122,8 +123,9 @@ def test_call_makes_no_host_sync(name, monkeypatch):
     n_warm = len(calls)
     with NoHostSync():
         out = call()              # what the capture records
-    want = (["fused_rates", "fused_post"] if name.startswith("aerosol")
-            else ["fused_step"])
+    want = ["table_stage"] + (["fused_rates", "fused_post"]
+                              if name.startswith("aerosol")
+                              else ["fused_step"])
     assert calls[n_warm:] == want
     assert all(t.device.type == "meta" for t in _leaves(out))
 
@@ -151,9 +153,9 @@ def eager_capture(warm_up, record, device):
 
 def _counted(real):
     """``real`` counting each call as a launch."""
-    def fn(*args):
+    def fn(*args, **kwargs):
         fn.launches += 1
-        return real(*args)
+        return real(*args, **kwargs)
 
     fn.launches = 0
     return fn
@@ -167,8 +169,8 @@ def eager_graphs(monkeypatch):
     eager_capture.built = []
     monkeypatch.setattr(G, "GRAPH_DEVICE_TYPES", ("cuda", "cpu", "meta"))
     monkeypatch.setattr(G, "capture", eager_capture)
-    for mod, name in ((F, "fused_step"), (A, "fused_rates"),
-                      (A, "fused_post")):
+    for mod, name in ((TS, "table_stage"), (F, "fused_step"),
+                      (A, "fused_rates"), (A, "fused_post")):
         monkeypatch.setattr(mod, name, _counted(getattr(mod, name)))
     return eager_capture.built
 
@@ -186,7 +188,7 @@ def test_graphed_equals_eager_and_counts_replays(name, eager_graphs):
     # call's
     assert cuda_build.launch_counts() == {k: 3 * n for k, n in
                                           n_eager.items()}
-    assert sum(n_eager.values()) == (2 if name.startswith("aerosol") else 1)
+    assert sum(n_eager.values()) == (3 if name.startswith("aerosol") else 2)
     for out in outs:
         got, want = _leaves(out), _leaves(eager)
         assert len(got) == len(want)

@@ -50,6 +50,7 @@ from kid_tpu_torch.micro import fused_kid_step as FK
 from kid_tpu_torch.micro import fused_step as F
 from kid_tpu_torch.micro import solver as S
 from kid_tpu_torch.micro import split_step as A
+from kid_tpu_torch.micro import table_stage as TS
 from kid_tpu_torch.micro.state import Precip
 from kid_tpu_torch.tables.cache import get_tables
 
@@ -223,7 +224,17 @@ def _stub_precip(like):
 
 
 def _stub_kernels(monkeypatch, calls):
-    """Shape-correct stand-ins for the four kernel wrappers."""
+    """Shape-correct stand-ins for the five kernel wrappers."""
+    def table_stage(state, pres, tables, cfg, dt_f, out=None):
+        calls.append("table_stage")
+        keys = S.tv_keys(cfg)
+        if out is None:
+            out = torch.empty((len(keys), *state.qv.shape),
+                              dtype=state.qv.dtype, device=state.qv.device)
+        assert out.shape == (len(keys), *state.qv.shape)
+        assert out.device == state.qv.device == pres.device
+        return dict(zip(keys, out))
+
     def fused_step(state, pres, dzq, tv, cfg, dt_f, want_rates):
         calls.append("fused_step")
         diag = ({k: torch.empty_like(state.qv) for k in S.DIAG_KEYS}
@@ -253,6 +264,7 @@ def _stub_kernels(monkeypatch, calls):
                 if rest[-1] else {})
         return _stub_state(KidState, st.qv), _stub_precip(st.qv), diag
 
+    monkeypatch.setattr(TS, "table_stage", table_stage)
     monkeypatch.setattr(F, "fused_step", fused_step)
     monkeypatch.setattr(A, "fused_rates", fused_rates)
     monkeypatch.setattr(A, "fused_post", fused_post)
@@ -293,11 +305,13 @@ def test_step_makes_no_host_sync(name, monkeypatch):
     n_warm = len(calls)
     with NoHostSync():
         loop.step_in_place()      # what the capture records
-    want = {"mixed1": ["fused_step"], "warm1_recon": ["fused_step"],
-            "cumulus2d": ["fused_step"], "fused": ["fused_kid_step"],
-            "aerosol1d": ["fused_rates", "fused_post"],
-            "sharded": ["fused_step"],
-            "sharded_in_step": ["ring", "fused_step"]}[name]
+    want = {"mixed1": ["table_stage", "fused_step"],
+            "warm1_recon": ["table_stage", "fused_step"],
+            "cumulus2d": ["table_stage", "fused_step"],
+            "fused": ["table_stage", "fused_kid_step"],
+            "aerosol1d": ["table_stage", "fused_rates", "fused_post"],
+            "sharded": ["table_stage", "fused_step"],
+            "sharded_in_step": ["ring", "table_stage", "fused_step"]}[name]
     assert calls[n_warm:] == want
     assert loop.profiles["prr_wau"].shape == (L.CHUNK_STEPS,) + shape
 

@@ -27,6 +27,7 @@ from kid_tpu_torch.driver.loop import initial_state, run_case
 from kid_tpu_torch.micro import fastmath as tfast
 from kid_tpu_torch.micro import fused_step as fs
 from kid_tpu_torch.micro import split_step as ss
+from kid_tpu_torch.micro import table_stage as ts
 from kid_tpu_torch.micro.solver import device_tables
 from kid_tpu_torch.tables import builders as tbuild
 from kid_tpu_torch.tables import index as tindex
@@ -294,6 +295,7 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
 
     def stub(stem):
         def launch(x, *args):
+            x = x[0] if isinstance(x, list) else x   # table_stage's chans
             seen.append((stem, x.dtype, next(
                 a for a in args if hasattr(a, "is_aerosol_aware"))))
         return launch
@@ -309,16 +311,18 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
     monkeypatch.setattr(FK, "launch_kid_packed", stub("fused_kid_step"))
     monkeypatch.setattr(ss, "launch_rates_packed", stub("fused_rates"))
     monkeypatch.setattr(ss, "launch_post_packed", stub("fused_post"))
+    monkeypatch.setattr(ts, "launch", stub("table_stage"))
     launches = K.timed_inputs(torch.device("cpu"), set(K.STEMS))
     for label, stem, fn in launches:
         fn()
     # the main paths' launches first, each with its own case's config
-    assert [s[0] for s in seen[:4]] == ["fused_step", "fused_kid_step",
+    assert [s[0] for s in seen[:6]] == ["table_stage", "fused_step",
+                                        "fused_kid_step", "table_stage",
                                         "fused_rates", "fused_post"]
-    assert [s[2].is_aerosol_aware for s in seen[:4]] == [False, False,
-                                                         True, True]
+    assert [s[2].is_aerosol_aware for s in seen[:6]] == [False] * 3 + [
+        True] * 3
     assert [stem for _, stem, _ in launches] == [s[0] for s in seen]
-    assert len(launches) == 4 + 3 * 3
+    assert len(launches) == 6 + 3 * 4
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
