@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import records
+from .. import records, spans
 from ..device import resolve_device
 from ..driver.cases import CASES
 from ..driver.loop import BLOCKS, KidState, initial_state
@@ -99,30 +99,41 @@ def profiled_window(run, n_steps: int, device, enter) -> dict:
     """``torch.profiler`` over ``run()``, ``n_steps`` steps: the device
     time of every kernel a step (``device_ms``), that of the NCCL kernels
     (``exchange_device_ms``) and its share of ``device_ms``, the NCCL
-    kernels a step and the host calls of a halo exchange a step (its
-    ``record_function`` span, which a replay of a graph that holds the
-    exchange does not enter).  ``enter()`` runs under the profiler just
-    before ``run()``, after the profiler's own start-up (a host barrier,
-    which launches no kernel); ``entered_s``: the wall clock
-    (``time.time()``) when ``run()`` began."""
+    kernels a step and the host calls of a halo exchange a step (its span
+    ``kid.halo_exchange``, which a replay of a graph that holds the
+    exchange does not enter; spans are on for the window).  The device
+    time leaves out the spans' and any other user annotation, which the
+    profiler also draws on the device's timeline.  ``enter()`` runs under
+    the profiler just before ``run()``, after the profiler's own start-up
+    (a host barrier, which launches no kernel); ``entered_s``: the wall
+    clock (``time.time()``) when ``run()`` began."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        enter()
-        entered = time.time()
-        run()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    was_on = spans.ON
+    spans.enable()
+    try:
+        with profile(activities=acts) as prof:
+            enter()
+            entered = time.time()
+            run()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    finally:
+        if not was_on:
+            spans.disable()
     device_us = nccl_us = nccl_kernels = host_calls = 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if (getattr(e, "is_user_annotation", False)
+                    or e.key.startswith(spans.PREFIX)):
+                continue
             device_us += e.self_device_time_total
             if "nccl" in e.key.lower():
                 nccl_us += e.self_device_time_total
                 nccl_kernels += e.count
-        elif e.key == "halo_exchange":
+        elif e.key == "kid.halo_exchange":
             host_calls += e.count
     return dict(device_ms=device_us / 1e3 / n_steps,
                 exchange_device_ms=nccl_us / 1e3 / n_steps,

@@ -39,8 +39,8 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from .. import spans
 from ..device import resolve_device
 from ..driver.advection import advective_tendency_x_padded
 from ..driver.loop import (BLOCKS, KidState, advected_fields, run_steps,
@@ -144,9 +144,10 @@ def halo_exchange_x(q, group, width: int = HALO, axis: int = 0):
     ``.seconds`` the host clock of the calls of this function (including
     the host copies and the wait for the device they imply) and of
     ``Halo.swap`` (its posting: NCCL makes no host wait; a replay of a
-    graph that holds it adds nothing)."""
+    graph that holds it adds nothing).  Both are the span
+    ``kid.halo_exchange``, which a replay does not enter either."""
     t0 = time.perf_counter()
-    with record_function("halo_exchange"):
+    with spans.span("kid.halo_exchange"):
         size = q.shape[axis]
         right = q.narrow(axis, size - width, width)
         left = q.narrow(axis, 0, width)
@@ -211,7 +212,7 @@ class Halo:
         themselves (the periodic wrap).  It reads no host value and copies
         nothing from the host, so a CUDA graph of the step holds it."""
         t0 = time.perf_counter()
-        with record_function("halo_exchange"):
+        with spans.span("kid.halo_exchange"):
             one = dist.get_world_size(group) == 1
             slab = self.recv if one else self.send
             torch.stack([state[i][-HALO:] for i in self.idx], out=slab[0])
@@ -266,7 +267,14 @@ def simulate_sharded(state_local: KidState, tables, case, n_steps: int,
     KidState, StepOutputs); ``gather_state`` collects them on rank 0.
     A captured step that holds NCCL sends and receives uses the group's
     communicator for as long as it lives: clear ``loop.BLOCKS`` before
-    destroying the group."""
+    destroying the group.  Its spans are ``simulate``'s."""
+    with spans.span("kid.simulate", istep0, n_steps):
+        return _simulate_sharded(state_local, tables, case, n_steps, group,
+                                 profile_diags, istep0, device, graphs)
+
+
+def _simulate_sharded(state_local, tables, case, n_steps, group,
+                      profile_diags, istep0, device, graphs):
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     lo, hi = column_block(case.nx, rank, n)
     if state_local.qv.shape[0] != hi - lo:

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import constants as c
+from .. import spans
 from ..device import check_on, resolve_device
 from ..micro import ColumnState, batched_microphysics, cuda_build
 from ..micro.graphs import GRAPH_DEVICE_TYPES, LRUCache, capture
@@ -274,17 +275,17 @@ def build_flow(case: Case, dtype, device, lo: int = 0,
     ``device``, with the stream function computed once for both patterns.
     The block's ``hi - lo + 1`` x-faces include the one it shares with its
     right neighbour.  ``BLOCKS`` keeps what this builds."""
-    grid = case.grid()
-    hi = case.nx if hi is None else hi
-    psi = None if case.is_1d else case._psi(grid)
-
     def put(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    u_pat = (None if case.is_1d
-             else put(case.rhou_pattern(grid, psi)[lo:hi + 1]))
-    return Flow(put(case.rhow_pattern(grid, psi)[lo:hi]), u_pat,
-                torch.broadcast_to(put(grid.pres), (hi - lo, case.nz)))
+    with spans.span("kid.setup.flow"):
+        grid = case.grid()
+        hi = case.nx if hi is None else hi
+        psi = None if case.is_1d else case._psi(grid)
+        u_pat = (None if case.is_1d
+                 else put(case.rhou_pattern(grid, psi)[lo:hi + 1]))
+        return Flow(put(case.rhow_pattern(grid, psi)[lo:hi]), u_pat,
+                    torch.broadcast_to(put(grid.pres), (hi - lo, case.nz)))
 
 
 def wrap_x(q):
@@ -373,11 +374,12 @@ class CapturedStep:
 
     def __init__(self, loop: StepLoop, state0: KidState, key, tables):
         t0 = time.perf_counter()
-        self.loop, self.key, self.tables = loop, key, tables
-        loop.state = KidState(*[t.clone() for t in state0])
-        self.graph, self.launches, _ = capture(
-            loop.advance, loop.step_in_place, loop.m_buf.device,
-            "global" if loop.exchange is None else "thread_local")
+        with spans.span("kid.capture"):
+            self.loop, self.key, self.tables = loop, key, tables
+            loop.state = KidState(*[t.clone() for t in state0])
+            self.graph, self.launches, _ = capture(
+                loop.advance, loop.step_in_place, loop.m_buf.device,
+                "global" if loop.exchange is None else "thread_local")
         self.ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, state0: KidState):
@@ -445,12 +447,14 @@ def simulate(state0: KidState, tables, case: Case, n_steps: int,
     tensor must lie on ``device``; raises without a GPU unless
     ``device="cpu"``.  On a card the step is captured as a CUDA graph and
     replayed (``graphs=False``: run eagerly); a failed capture or replay
-    raises.  The returned tensors are the caller's own."""
-    dev = resolve_device(device)
-    check_on(state0.qv, dev)
-    block = BLOCKS.get(case, state0.qv.dtype, state0.qv.device)
-    return run_steps(state0, tables, case, n_steps, profile_diags, istep0,
-                     dev, block, wrap_x, graphs)
+    raises.  The returned tensors are the caller's own.  The call is the
+    span ``kid.simulate``, which holds ``run_steps``' spans."""
+    with spans.span("kid.simulate", istep0, n_steps):
+        dev = resolve_device(device)
+        check_on(state0.qv, dev)
+        block = BLOCKS.get(case, state0.qv.dtype, state0.qv.device)
+        return run_steps(state0, tables, case, n_steps, profile_diags,
+                         istep0, dev, block, wrap_x, graphs)
 
 
 def run_steps(state0: KidState, tables, case: Case, n_steps: int,
@@ -475,38 +479,42 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
     no graph can hold): once for ``state0`` before anything else, so that
     a capture's warm-up reads filled ghosts and no collective runs inside
     the warm-up or the capture, then before every later step (one call
-    for a call of no steps)."""
-    dev = resolve_device(device)
-    for t in state0:
-        check_on(t, dev)
-    dtype = state0.qv.dtype
-    shape = tuple(state0.qv.shape)
-    fl = block.flow
-    if fl.w_pat.shape != (shape[0], shape[1] + 1):
-        raise ValueError(f"flow rows {tuple(fl.w_pat.shape)} do not fit "
-                         f"the state's {shape}")
-    names = resolve_profile_names(profile_diags)
-    held = exchange if in_step else None
-    between = None if in_step else exchange
-    if between is not None:
-        between(state0)                   # the first step's halo
+    for a call of no steps).
 
-    def new_loop():
-        step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
-                         fl.pres2, pad_x, names)
-        return StepLoop(step, shape, dtype, dev, names, held)
+    Spans: ``kid.simulate.prepare``, from the checks through the capture
+    or reuse and ``CapturedStep.load``, then ``drive``'s."""
+    with spans.span("kid.simulate.prepare"):
+        dev = resolve_device(device)
+        for t in state0:
+            check_on(t, dev)
+        dtype = state0.qv.dtype
+        shape = tuple(state0.qv.shape)
+        fl = block.flow
+        if fl.w_pat.shape != (shape[0], shape[1] + 1):
+            raise ValueError(f"flow rows {tuple(fl.w_pat.shape)} do not fit "
+                             f"the state's {shape}")
+        names = resolve_profile_names(profile_diags)
+        held = exchange if in_step else None
+        between = None if in_step else exchange
+        if between is not None:
+            between(state0)                   # the first step's halo
 
-    if graphs and dev.type in GRAPH_DEVICE_TYPES:
-        key = (names, os.environ.get(FUSED_DRIVER_ENV, "0"), id(tables),
-               pad_x, held)
-        captured = block.capture(key, lambda: CapturedStep(
-            new_loop(), state0, key, tables))
-        captured.load(state0)
-        loop, run = captured.loop, captured.run
-    else:
-        loop = new_loop()
-        loop.state = state0
-        run = loop.run
+        def new_loop():
+            step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
+                             fl.pres2, pad_x, names)
+            return StepLoop(step, shape, dtype, dev, names, held)
+
+        if graphs and dev.type in GRAPH_DEVICE_TYPES:
+            key = (names, os.environ.get(FUSED_DRIVER_ENV, "0"), id(tables),
+                   pad_x, held)
+            captured = block.capture(key, lambda: CapturedStep(
+                new_loop(), state0, key, tables))
+            captured.load(state0)
+            loop, run = captured.loop, captured.run
+        else:
+            loop = new_loop()
+            loop.state = state0
+            run = loop.run
     return drive(loop, run, case, n_steps, istep0, between)
 
 
@@ -517,7 +525,9 @@ def drive(loop: StepLoop, run, case: Case, n_steps: int, istep0: int,
     ``run(k, between)`` (``StepLoop.run`` or ``CapturedStep.run``), and
     the chunk's streams copied out.  ``between``, if given, runs before
     every step but the first, whose halo the caller has filled.  Returns
-    (final KidState, StepOutputs), the caller's own."""
+    (final KidState, StepOutputs), the caller's own.  Spans: a
+    ``kid.chunk`` a chunk (``.upload``, ``.replay``, ``.streams``), then
+    ``kid.simulate.finish``, the final state's clones."""
     state = loop.state
     dtype, dev = state.qv.dtype, state.qv.device
     shape = tuple(state.qv.shape)
@@ -526,16 +536,23 @@ def drive(loop: StepLoop, run, case: Case, n_steps: int, istep0: int,
                 for n in loop.profiles}
     for i0 in range(0, n_steps, CHUNK_STEPS):
         k = min(CHUNK_STEPS, n_steps - i0)
-        loop.start_chunk(case.modulation_table(istep0 + i0, k, dtype))
-        if i0 == 0 and between is not None:
-            run(1)                        # its halo was exchanged above
-            run(k - 1, between)
-        else:
-            run(k, between)
-        ppt[i0:i0 + k] = loop.ppt[:k]
-        for n, out in profiles.items():
-            out[i0:i0 + k] = loop.profiles[n][:k]
-    return KidState(*[t.clone() for t in loop.state]), StepOutputs(
+        with spans.span("kid.chunk"):
+            with spans.span("kid.chunk.upload"):
+                loop.start_chunk(case.modulation_table(istep0 + i0, k,
+                                                       dtype))
+            with spans.span("kid.chunk.replay"):
+                if i0 == 0 and between is not None:
+                    run(1)                # its halo was exchanged above
+                    run(k - 1, between)
+                else:
+                    run(k, between)
+            with spans.span("kid.chunk.streams"):
+                ppt[i0:i0 + k] = loop.ppt[:k]
+                for n, out in profiles.items():
+                    out[i0:i0 + k] = loop.profiles[n][:k]
+    with spans.span("kid.simulate.finish"):
+        final = KidState(*[t.clone() for t in loop.state])
+    return final, StepOutputs(
         ppt_rain=ppt[:, 0], ppt_snow=ppt[:, 1], ppt_graupel=ppt[:, 2],
         ppt_ice=ppt[:, 3], profiles=profiles)
 

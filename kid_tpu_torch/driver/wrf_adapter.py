@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..config import MicroConfig
 from ..device import check_on, resolve_device
 from ..diag.moments import effective_radii
@@ -73,21 +74,22 @@ def mp_driver_3d(qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz,
     eagerly).  A failed capture raises.
 
     Returns (fields dict, WrfPrecip, effective radii dict or None), the
-    caller's own.
+    caller's own.  The call is the span ``kid.mp_driver_3d``.
     """
     from ..micro import graphs as G
-    dev = resolve_device(device)
-    args = (qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz, rainnc,
-            snownc, graupelnc)
-    for a in args:
-        check_on(a, dev)
-    dt_f = float(dt)
+    with spans.span("kid.mp_driver_3d"):
+        dev = resolve_device(device)
+        args = (qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz, rainnc,
+                snownc, graupelnc)
+        for a in args:
+            check_on(a, dev)
+        dt_f = float(dt)
 
-    def body(*a):
-        return _mp_driver_body(*a, dt_f, tables, cfg, want_eff_rad)
+        def body(*a):
+            return _mp_driver_body(*a, dt_f, tables, cfg, want_eff_rad)
 
-    return G.run(body, args, ("mp_driver_3d", cfg, dt_f, want_eff_rad,
-                              id(tables)), graphs)
+        return G.run(body, args, ("mp_driver_3d", cfg, dt_f, want_eff_rad,
+                                  id(tables)), graphs)
 
 
 def _mp_driver_body(qv, qc, qr, qi, qs, qg, ni, nr, th, pii, p, w, dz,

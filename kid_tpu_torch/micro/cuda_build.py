@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import constants as c
+from .. import spans
 from ..special import _RSIF_C, _RSLF_C
 from . import solver as S
 from .aerosol import slip_correction
@@ -129,7 +130,8 @@ def build_key(header: str) -> str:
 
 
 class _Libraries:
-    """The compiled kernel libraries, built once per process."""
+    """The compiled kernel libraries, built once per process (the span
+    ``kid.setup.build``: the build, or the load of a build found)."""
 
     def __init__(self):
         self._libs = None
@@ -138,8 +140,9 @@ class _Libraries:
     def get(self, stem: str) -> ctypes.CDLL:
         """The loaded library of ``csrc/<stem>.cu``."""
         if self._libs is None:
-            self._libs = {k: ctypes.CDLL(str(v))
-                          for k, v in self._build().items()}
+            with spans.span("kid.setup.build"):
+                self._libs = {k: ctypes.CDLL(str(v))
+                              for k, v in self._build().items()}
         return self._libs[stem]
 
     def _build(self) -> dict:

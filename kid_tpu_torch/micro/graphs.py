@@ -20,6 +20,7 @@ import collections
 
 import torch
 
+from .. import spans
 from . import cuda_build
 
 # the device types on which ``run`` captures (the tests put a stand-in
@@ -73,25 +74,32 @@ class CapturedCall:
     lives."""
 
     def __init__(self, fn, args: tuple, key):
-        self.fn, self.key = fn, key
-        self.args = tuple(None if a is None
-                          else a.clone(memory_format=torch.contiguous_format)
-                          for a in args)
-        dev = next(a.device for a in self.args if a is not None)
+        with spans.span("kid.capture"):
+            self.fn, self.key = fn, key
+            self.args = tuple(
+                None if a is None
+                else a.clone(memory_format=torch.contiguous_format)
+                for a in args)
+            dev = next(a.device for a in self.args if a is not None)
 
-        def call():
-            return self.fn(*self.args)
+            def call():
+                return self.fn(*self.args)
 
-        self.graph, self.launches, self.outputs = capture(call, call, dev)
+            self.graph, self.launches, self.outputs = capture(call, call,
+                                                              dev)
 
     def __call__(self, args: tuple):
-        """One replay on ``args``; returns clones of the outputs."""
-        for buf, a in zip(self.args, args):
-            if buf is not None:
-                buf.copy_(a)
-        self.graph.replay()
-        cuda_build.add_launches(self.launches)
-        return clone(self.outputs)
+        """One replay on ``args``; returns clones of the outputs.  Spans:
+        ``kid.call.copy_in``, ``kid.call.replay``, ``kid.call.clone_out``."""
+        with spans.span("kid.call.copy_in"):
+            for buf, a in zip(self.args, args):
+                if buf is not None:
+                    buf.copy_(a)
+        with spans.span("kid.call.replay"):
+            self.graph.replay()
+            cuda_build.add_launches(self.launches)
+        with spans.span("kid.call.clone_out"):
+            return clone(self.outputs)
 
 
 class LRUCache:
@@ -130,11 +138,15 @@ def run(fn, args: tuple, static: tuple, graphs: bool = True):
     dtype and device of each argument) when ``graphs`` is set and the
     arguments lie on a device of ``GRAPH_DEVICE_TYPES``; eagerly
     otherwise.  ``args`` are tensors or None; ``static`` must name
-    everything else ``fn`` depends on.  The result is the caller's own."""
+    everything else ``fn`` depends on.  The result is the caller's own.
+    The key and the cache's lookup (and a capture, if one is made) are
+    the span ``kid.call.lookup``."""
     dev = next(a.device for a in args if a is not None)
     if not (graphs and dev.type in GRAPH_DEVICE_TYPES):
         return fn(*args)
-    key = (static, tuple(None if a is None
-                         else (tuple(a.shape), a.dtype, a.device)
-                         for a in args))
-    return GRAPHS.get(key, lambda: CapturedCall(fn, args, key))(args)
+    with spans.span("kid.call.lookup"):
+        key = (static, tuple(None if a is None
+                             else (tuple(a.shape), a.dtype, a.device)
+                             for a in args))
+        call = GRAPHS.get(key, lambda: CapturedCall(fn, args, key))
+    return call(args)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import constants as c
+from .. import spans
 from ..config import MicroConfig
 from ..device import check_on, resolve_device
 from ..special import rsif, rslf
@@ -98,8 +99,12 @@ def device_tables(tables: Tables, dtype=torch.float32,
                   device="cuda") -> DeviceTables:
     """Re-lay host float64 tables into flat stacked families on
     ``device``; casting and stacking happen in numpy, so each family
-    crosses to the device as one buffer."""
-    dev = resolve_device(device)
+    crosses to the device as one buffer.  The span ``kid.setup.tables``."""
+    with spans.span("kid.setup.tables"):
+        return _device_tables(tables, dtype, resolve_device(device))
+
+
+def _device_tables(tables: Tables, dtype, dev) -> DeviceTables:
     np_dtype = np.dtype(str(dtype).replace("torch.", ""))
 
     def put(a):

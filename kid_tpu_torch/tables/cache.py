@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 
 from .. import constants as c
+from .. import spans
 from .builders import Tables, build_all_tables
 
 _CACHE_VERSION = 1
@@ -44,7 +45,14 @@ def default_cache_dir() -> str:
 
 def get_tables(iiwarm: bool = False, cache_dir: Optional[str] = None,
                use_cache: bool = True) -> Tables:
-    """Load tables from the cache, or build and persist them."""
+    """Load tables from the cache, or build and persist them (the span
+    ``kid.setup.tables``)."""
+    with spans.span("kid.setup.tables"):
+        return _get_tables(iiwarm, cache_dir, use_cache)
+
+
+def _get_tables(iiwarm: bool, cache_dir: Optional[str],
+                use_cache: bool) -> Tables:
     if not use_cache:
         return build_all_tables(iiwarm)
     cache_dir = cache_dir or default_cache_dir()
