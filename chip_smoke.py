@@ -8,11 +8,12 @@ the port (``kid_tpu_torch``) only.  Phases, each of which exits non-zero
 on failure:
 
   1. card and build: the card's name and power limit, then the kernels
-     of ``kid_tpu_torch/micro/csrc`` (``table_stage``, ``fused_step``,
-     ``fused_rates``, ``fused_post``, ``fused_kid_step``), built
-     together, and what the card gives each instantiation (registers,
-     spill bytes, static shared bytes, active blocks per SM at nz 120 and
-     256);
+     of ``kid_tpu_torch/micro/csrc`` (``advect``, ``table_stage``,
+     ``fused_step``, ``fused_rates``, ``fused_post``, ``fused_kid_step``),
+     built together, and what the card gives each instantiation
+     (registers, spill bytes, static shared bytes, active blocks per SM at
+     nz 120 and 256; ``advect`` at nz 60, 120 and 130, 5, 9 and 12
+     tracers, 1-D and 2-D, its shared bytes with its tile's slabs);
   2. ``fused_step`` against its plain PyTorch version on the card (its
      table-stage channels from the plain table stage, as in 2b-2d), on a
      seeded synthetic batch (ncol=1000, nz 120 and 130 in float64 and
@@ -37,8 +38,8 @@ on failure:
      float32 through ``simulate``, which captures its step as a CUDA
      graph in the 150 spin-up steps and replays it in 50 steps into the
      updraft pulse, timed as 5 windows of 10 steps (median and best), with
-     a profile of 5 more steps, the kernels' launch counts
-     (``table_stage`` and ``fused_step`` once a step), outputs checked
+     a profile of 5 more steps, the kernels' launch counts (``advect``,
+     ``table_stage`` and ``fused_step`` once a step), outputs checked
      finite and non-negative, and ``fused_step`` timed against its plain
      version on the main path's own inputs;
   3b. the aerosol main path: aerosol1d widened the same way, through
@@ -61,6 +62,16 @@ on failure:
      index flipped at a knife edge) printed; a digest of each batch and a
      combined one, ms/launch, the plain version's ms, the bound and the
      registers, spill and blocks per SM;
+  2f. (run after 2e) ``advect``, the driver step's transport, against
+     its plain version (``driver/advection.py::advect_ref``, the step's
+     torch composition) bit for bit in float32 and float64, every head
+     row and the provisional theta: mixed1, warm1 and aerosol1d at 8192
+     columns, cumulus2d at 131072 x 60 (2048 copies of its circulation),
+     orographic2d at 64 x 60, and rank 1 of 2 of that cumulus2d, its
+     ghost columns from a ``Halo``; a digest a batch and a combined one,
+     printed apart; at mixed1's and cumulus2d's shapes in float32 its
+     ms/launch beside its byte bound and its target, and the plain
+     composition's ms;
   4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
      256 columns and orographic2d at its own 64 x 60, from a seeded state
      at step 150, 20 steps through the kernel path and through the plain
@@ -172,9 +183,10 @@ plain runs of phase 4 run the eager loop.  ``batched_microphysics`` and
 ``mp_driver_3d`` called on their own replay a CUDA graph of the call
 (``kid_tpu_torch/micro/graphs.py``), dropped after phases 5b and 8.
 
-Phases 2, 2b, 2c, 2d and 2e print a SHA-256 digest (first 16 hex digits)
-of each kernel's outputs on each batch, and a combined digest per kernel
-(phase 2d's apart): the inputs are seeded and the kernels deterministic,
+Phases 2, 2b, 2c, 2d, 2e and 2f print a SHA-256 digest (first 16 hex
+digits) of each kernel's outputs on each batch, and a combined digest per
+kernel (phase 2d's apart): the inputs are seeded and the kernels
+deterministic,
 so a change to a kernel that keeps its results bit for bit keeps the
 digests.  The new phases print their seconds.
 
@@ -234,6 +246,16 @@ N_WINDOW_2D = 90
 # phase 6: ranks on the one card; the flagship (bench_scaling_r05.py:38)
 N_RANKS = 2
 FLAGSHIP_NX, FLAGSHIP_SPIN, FLAGSHIP_STEPS = 131072, 150, 20
+# phase 2f: the transport kernel's cells: label -> (case, columns, the
+# rank of 2 whose block it takes, or None); the loops' cells are timed
+# against their targets (ms/launch)
+ADVECT_CELLS = {"mixed1": ("mixed1", MAIN_NX, None),
+                "warm1": ("warm1", MAIN_NX, None),
+                "aerosol1d": ("aerosol1d", MAIN_NX, None),
+                "cumulus2d": ("cumulus2d", FLAGSHIP_NX, None),
+                "orographic2d": ("orographic2d", 64, None),
+                "cumulus2d rank 1 of 2": ("cumulus2d", FLAGSHIP_NX, 1)}
+ADVECT_TARGETS = {"mixed1": 0.06, "cumulus2d": 0.40}
 # phase 9: cell -> (steps, from step (0: the initial sounding; else a
 # seeded state), streams of the timed runs (True: all), streams of one
 # more pair of runs or None); the 1-D cells at MAIN_NX columns, the
@@ -588,7 +610,24 @@ def phase_resources():
     resources by kernel (mixed phase, nz 120, no rate profiles)."""
     from kid_tpu_torch.micro import cuda_build
     main = {}
+    for nz in (60, 120, 130):
+        for dtype in (torch.float32, torch.float64):
+            for n_adv in (5, 9, 12):
+                for two_d in (False, True):
+                    r = cuda_build.resources("advect", nz, dtype, n_adv,
+                                             two_d)
+                    print(f"resources advect nz={nz} {str(dtype)[6:]} "
+                          f"n_adv={n_adv} {'2-D' if two_d else '1-D'}: "
+                          f"{r['regs']} regs, {r['spill_bytes']} spill "
+                          f"bytes, {r['shared_bytes']} shared bytes, "
+                          f"{r['blocks_per_sm']} blocks of 256 threads/SM",
+                          flush=True)
+                    if (nz, dtype, n_adv, two_d) == (120, torch.float32, 9,
+                                                     False):
+                        main["advect"] = r
     for name in kernels():
+        if name == "advect":
+            continue
         for nz in (120, 256):
             for dtype in (torch.float32, torch.float64):
                 for warm in (False, True):
@@ -794,13 +833,16 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
 # what each kernel replaces: the def line of a TPU kernel in
 # kid_tpu/micro/pallas_step.py, or the reference's XLA stages
 REPLACES = {"table_stage": "kid_tpu/micro/solver.py:1132,1350",
+            "advect": "kid_tpu/driver/loop.py:230-262 (XLA's fusion)",
             **{k: f"kid_tpu/micro/pallas_step.py:{v}" for k, v in (
                 ("fused_step", 353), ("fused_rates", 202),
                 ("fused_post", 266), ("fused_kid_step", 67))}}
-# the kernels of each step path, each launched once a step
-STEP = ("table_stage", "fused_step")
-SPLIT = ("table_stage", "fused_rates", "fused_post")
-KID = ("table_stage", "fused_kid_step")
+# the kernels of a solver or WRF-shaped call, and of each step path, each
+# launched once a call or a step
+CALL = ("table_stage", "fused_step")
+STEP = ("advect", *CALL)
+SPLIT = ("advect", "table_stage", "fused_rates", "fused_post")
+KID = ("advect", "table_stage", "fused_kid_step")
 
 
 def path_counts(counts, n, kernels) -> dict:
@@ -1114,6 +1156,123 @@ def phase_table_stage(dev, card, digests, launches, x_mixed, x_aero):
     return record
 
 
+def advect_inputs(cell, dtype, dev, seed=0):
+    """(state, m, ``Transport``, n_adv) of an ``ADVECT_CELLS`` cell: the
+    case's initial sounding with cloud layers and 5% of seeded noise on
+    every channel, m(t) at step 150 and the flow of its columns, or of its
+    rank's block, whose ``Halo`` holds the neighbours' edge columns as the
+    ring exchange delivers them."""
+    from kid_tpu_torch.dist import mesh as M
+    from kid_tpu_torch.driver import advection as ADV
+    from kid_tpu_torch.driver.cases import CASES
+    from kid_tpu_torch.driver.loop import (KidState, advected_fields,
+                                           build_flow, initial_state)
+    name, ncol, rank = ADVECT_CELLS[cell]
+    base = CASES[name]
+    wide = {} if ncol == base.nx else (
+        {"nx": ncol} if base.is_1d else {"nx": ncol, "cell_nx": base.nx})
+    case = dataclasses.replace(base, **wide)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grid = case.grid()
+
+    def prof(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    layer = 1.0e-4 * (prof(grid.z) < 0.5 * case.ztop).to(dtype)
+    st = []
+    for f, t in zip(KidState._fields, initial_state(case, dtype, dev)):
+        b = t + layer if f in ("qc", "qr", "qi", "qs") else t
+        st.append(b * (1.0 + 0.05 * torch.randn(
+            b.shape, generator=gen, dtype=dtype, device=dev)))
+    n_adv = len(advected_fields(case.micro))
+    lo, hi = (0, ncol) if rank is None else M.column_block(ncol, rank, 2)
+    fl = build_flow(case, dtype, dev, lo, hi)
+    ghosts = None
+    if rank is not None:
+        ghosts = M.Halo(case, dtype, dev)
+        for buf, cols in ((ghosts.left, range(lo - M.HALO, lo)),
+                          (ghosts.right, range(hi, hi + M.HALO))):
+            idx = torch.tensor(cols, device=dev) % ncol
+            buf.copy_(torch.stack([t[idx] for t in st[:n_adv]]))
+    tr = ADV.Transport(fl.w_pat, fl.u_pat, prof(grid.rho0), prof(grid.dz),
+                       prof(grid.exner)[None, :], fl.pres2, case.u0,
+                       case.dx, case.dt, ghosts)
+    m = torch.tensor(case.time_modulation(150, dtype), dtype=dtype,
+                     device=dev)
+    return KidState(*[t[lo:hi] for t in st]), m, tr, n_adv
+
+
+def phase_advect(dev, card, digests, launches, res):
+    """``advect`` (the driver step's transport) against its plain version
+    on each ``ADVECT_CELLS`` cell in float32 and float64: every head row
+    and the provisional theta bit for bit, a digest of each and a
+    combined one; in float32 at the loops' shapes its ms/launch beside
+    its bound (bytes: the state planes and flow rows read once, 14 rows
+    written) and its target, and the plain composition's ms.  Returns the
+    kernels-line record (mixed1's input; cumulus2d's beside it), whose
+    launches are ``launches``."""
+    from kid_tpu_torch.driver import advection as ADV
+    from kid_tpu_torch.micro.state import ColumnState
+    names = (*ColumnState._fields, "pres", "dzq", "provisional theta")
+    record = {}
+    for cell in ADVECT_CELLS:
+        for dtype in (torch.float32, torch.float64):
+            st, m, tr, n_adv = advect_inputs(cell, dtype, dev)
+            shape = tuple(st.qv.shape)
+            got = [torch.empty((14, *shape), dtype=dtype, device=dev),
+                   torch.empty(shape, dtype=dtype, device=dev)]
+            want = [torch.empty_like(t) for t in got]
+            ADV.advect(st, m, tr, n_adv, *got)
+            ADV.advect_ref(st, m, tr, n_adv, *want)
+            torch.cuda.synchronize()
+            got_rows = dict(zip(names, [*got[0], got[1]]))
+            want_rows = dict(zip(names, [*want[0], want[1]]))
+            bad = [k for k in names
+                   if not torch.equal(got_rows[k], want_rows[k])]
+            label = f"{cell} {shape} {str(dtype)[6:]}"
+            d = record_digest(digests, "advect", label, got_rows)
+            print(f"advect vs plain  {label}: {len(names) - len(bad)} of "
+                  f"{len(names)} rows bit for bit, digest {d}", flush=True)
+            if bad:
+                worst = max(float((got_rows[k] - want_rows[k]).abs().max())
+                            for k in bad)
+                raise AssertionError(f"advect {label}: {bad} differ from "
+                                     f"the plain version (worst {worst:.3e})")
+            if dtype != torch.float32 or cell not in ADVECT_TARGETS:
+                continue
+            out = got[0]
+            ms = time_ms(lambda: ADV.launch(st, m, tr, n_adv, out), 50)
+            plain_ms = time_ms(
+                lambda: ADV.advect_ref(st, m, tr, n_adv, out), 5)
+            counter = OpCounter()
+            with counter:
+                ADV.advect_ref(st, m, tr, n_adv, out)
+            flows = [tr.w_pat] + ([tr.u_pat] if tr.u_pat is not None else [])
+            n_bytes = 4 * (12 * st.qv.numel() + sum(t.numel() for t in flows)
+                           + out.numel())
+            bytes_ms = n_bytes / PEAK_BYTES * 1e3
+            ops_ms = counter.ops / PEAK_F32_OPS * 1e3
+            bound = max(bytes_ms, ops_ms)
+            target = ADVECT_TARGETS[cell]
+            print(f"advect at {label}: {ms:.4f} ms/launch ({ms / bound:.2f}x "
+                  f"its bound, target {target} ms), plain composition "
+                  f"{plain_ms:.3f} ms, bound {bound:.4f} ms "
+                  f"({n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
+                  f"{counter.ops / 1e9:.2f} G elementwise ops of the plain "
+                  f"version -> {ops_ms:.4f} ms) [{card}]", flush=True)
+            record[cell] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                bound_by="bytes" if bytes_ms >= ops_ms
+                                else "operations", shape=list(shape))
+    print_digests(digests, "advect")
+    main = record.pop("mixed1")
+    return dict(name="advect", route="cuda",
+                source="kid_tpu_torch/micro/csrc/advect.cu",
+                replaces=REPLACES["advect"], launches=launches,
+                max_abs_err=0.0, library_ms=None, regs=res["regs"],
+                spill_bytes=res["spill_bytes"],
+                blocks_per_sm=res["blocks_per_sm"], **main, also=record)
+
+
 def guard_shares(card, *plain):
     """Where the guards of the aerosol kernels run on the main path's last
     inputs: each guard's mask as ``solver.guarded`` sees it in the plain
@@ -1172,6 +1331,9 @@ def check_profiled_launches(label, rows, path_kernels):
     for name in path_kernels:
         per_step = sum(r[2] for r in rows if f"{name}_kernel" in r[0])
         if per_step != 1.0:
+            for key, ms, cnt in rows:       # what the profiler did record
+                print(f"  {ms:8.4f} ms/step {cnt:6.1f}x  {key[:110]}",
+                      flush=True)
             raise AssertionError(f"{label}: the profiler recorded "
                                  f"{per_step} {name} launches a step, "
                                  f"expected 1")
@@ -1242,6 +1404,7 @@ def seeded_state(case, dev, seed=0):
 
 
 def phase_end_to_end(dev):
+    import kid_tpu_torch.driver.advection as ADV
     import kid_tpu_torch.micro.fused_step as F
     import kid_tpu_torch.micro.split_step as A
     import kid_tpu_torch.micro.table_stage as TS
@@ -1260,7 +1423,8 @@ def phase_end_to_end(dev):
                                torch.float64, dev)
         st0 = seeded_state(case, dev)
         # the kernels of this case's path, and their plain versions
-        swaps = [(TS, "table_stage", TS.table_stage_ref)]
+        swaps = [(ADV, "advect", ADV.advect_ref),
+                 (TS, "table_stage", TS.table_stage_ref)]
         if case.micro.is_aerosol_aware:
             swaps += [(A, "fused_rates", A.fused_rates_ref),
                       (A, "fused_post", A.fused_post_ref)]
@@ -1321,6 +1485,7 @@ def phase_end_to_end(dev):
 
 
 def phase_fused_driver_end_to_end(dev):
+    import kid_tpu_torch.driver.advection as ADV
     import kid_tpu_torch.micro.fused_kid_step as FK
     import kid_tpu_torch.micro.table_stage as TS
     from kid_tpu_torch.driver.cases import CASES
@@ -1339,7 +1504,7 @@ def phase_fused_driver_end_to_end(dev):
                             graphs=graphs)
 
         d_st, d_out = run()                  # the default kernel path
-        kernels = FK.fused_kid_step, TS.table_stage
+        kernels = FK.fused_kid_step, TS.table_stage, ADV.advect
         os.environ[FUSED_DRIVER_ENV] = "1"
         try:
             n0 = read_counts()
@@ -1347,9 +1512,10 @@ def phase_fused_driver_end_to_end(dev):
             n1 = read_counts()
             FK.fused_kid_step = FK.fused_kid_step_ref  # the plain path
             TS.table_stage = TS.table_stage_ref
+            ADV.advect = ADV.advect_ref
             p_st, p_out = run(graphs=False)
         finally:
-            FK.fused_kid_step, TS.table_stage = kernels
+            FK.fused_kid_step, TS.table_stage, ADV.advect = kernels
             del os.environ[FUSED_DRIVER_ENV]
         torch.cuda.synchronize()
         launched = {k: n1[k] - n0[k] for k in n1}
@@ -1451,8 +1617,8 @@ def phase_2d(dev, card):
                 raise AssertionError(f"{case.name}: windowed {k} differs")
         step_ms = float(np.median(window_ms))
         print(f"2-D {case.name} ({case.nx}, {case.nz}) f32, {n} steps: "
-              f"run_case {run_s:.1f} s with {n} table_stage and {n} "
-              f"fused_step launches and no other kernel; {len(window_ms)} "
+              f"run_case {run_s:.1f} s with {n} advect, {n} table_stage and "
+              f"{n} fused_step launches and no other kernel; {len(window_ms)} "
               f"windows of "
               f"{N_WINDOW_2D} steps through simulate, bit for bit the same: "
               f"median {step_ms:.3f} ms/step ({case.nx * 1e3 / step_ms:.0f} "
@@ -1645,7 +1811,7 @@ def phase_wrf(dev, card):
     for eff in (False, True):
         counts, times, n, (fields, precip, _) = graphed_and_eager(
             "mp_driver_3d", lambda graphs, eff=eff: call(eff, graphs))
-        if counts["graphed"] != path_counts(counts["graphed"], 1, STEP):
+        if counts["graphed"] != path_counts(counts["graphed"], 1, CALL):
             raise AssertionError(f"mp_driver_3d: launches {counts}")
         print(f"mp_driver_3d{' with radii' if eff else ''} graphed and "
               f"eager on a {WRF_TILE} f32 tile: the same bits in {n} "
@@ -1932,8 +2098,9 @@ def phase_flagship(dev, card):
           f"before it was kept: {build_ms:.1f} ms, {build_ms / n:.3f} "
           f"ms/step); the spin-up's first call (warm-up, capture and 1 "
           f"step) {first_ms:.1f} ms; "
-          f"{counts['table_stage']} table_stage and {counts['fused_step']} "
-          f"fused_step launches and no other kernel; peak device memory "
+          f"{counts['advect']} advect, {counts['table_stage']} table_stage "
+          f"and {counts['fused_step']} fused_step launches and no other "
+          f"kernel; peak device memory "
           f"{peak / 2**30:.2f} GiB; qc max "
           f"{float(final.qc.max()):.3e}, rain in the window "
           f"{float(out.ppt_rain.double().sum()):.4e} [{card}]", flush=True)
@@ -2573,7 +2740,7 @@ def phase_records(dev, card):
                 got[mode + "_s"] = time.perf_counter() - t0
                 counts = read_counts()
                 if counts != path_counts(counts, CHAOS_STEPS,
-                                         ("table_stage", kernel)):
+                                         ("advect", "table_stage", kernel)):
                     raise AssertionError(f"{label} {mode}: launches "
                                          f"{counts}")
         finally:
@@ -2664,6 +2831,8 @@ def main() -> int:
         dev, card, default_ms, res)
     records = [timed("2e", phase_table_stage, dev, card, digests,
                      paths["mixed1"]["table_stage"], x_mixed, x_aero),
+               timed("2f", phase_advect, dev, card, digests,
+                     paths["mixed1"]["advect"], res["advect"]),
                *records, *aerosol, *fused]
     del x_mixed, x_aero
     timed("4", phase_end_to_end, dev)

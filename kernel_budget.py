@@ -6,8 +6,8 @@ one CUDA card.
                              [--budget NAME=A,B,C,D]... [--fmad]
 
 Builds the kernels of ``kid_tpu_torch/micro/csrc`` named by ``--kernels``
-(default all five: ``fused_step``, ``fused_kid_step``, ``fused_rates``,
-``fused_post``, ``table_stage``) as shipped, and once more per
+(default all six: ``fused_step``, ``fused_kid_step``, ``fused_rates``,
+``fused_post``, ``table_stage``, ``advect``) as shipped, and once more per
 ``--budget``: each kernel's register-budget macros of
 ``csrc/thompson.cuh`` (blocks of 128 threads that must fit on an SM) for
 float32 mixed, float32 warm, float64 mixed and float64 warm, set to A,
@@ -30,7 +30,10 @@ builds run in parallel.  Then, on the card:
     of ``chip_smoke.py`` phase 2b, with ``fused_post`` fed the plain
     path's p8 and lookups; for ``table_stage`` non-aerosol and
     aerosol-aware, where the instantiation's third template flag, which
-    the SASS labels print as ``rates``, is the aerosol one); each
+    the SASS labels print as ``rates``, is the aerosol one; for
+    ``advect`` the cells of ``chip_smoke.py`` phase 2f in float32 and
+    float64, its resources labelled warm for 5 tracers, mixed for 9 and
+    ``2d`` for its 2-D flag); each
     differing output is printed (``DIFFERS``) and makes the script exit
     1 once the timings are printed; the
     ``-fmad=true`` build rounds otherwise, so its differing outputs are
@@ -41,7 +44,8 @@ builds run in parallel.  Then, on the card:
     default step, ``fused_kid_step`` from its fused driver,
     ``table_stage``, ``fused_rates`` and ``fused_post`` from aerosol1d's
     step; the table stage's input is the first 13 rows of the next
-    kernel's), and on seeded warm and float64 batches at (8192, 120).
+    kernel's), and on seeded warm and float64 batches at (8192, 120);
+    ``advect`` on phase 2f's mixed1 and cumulus2d cells in float32.
 
 Imports the port (``kid_tpu_torch``) and ``chip_smoke`` only; builds into
 ``build/kid_tpu_torch/budget/`` at the repository root.
@@ -64,14 +68,17 @@ import chip_smoke as C
 from kid_tpu_torch.micro import cuda_build
 
 STEMS = ("fused_step", "fused_kid_step", "fused_rates", "fused_post",
-         "table_stage")
+         "table_stage", "advect")
 _ROWS = ("F32_MIXED", "F32_WARM", "F64_MIXED", "F64_WARM")
 # each kernel's budget macros in csrc/thompson.cuh, in _ROWS order
 BUDGET_MACROS = {
     stem: tuple(f"{prefix}MIN_BLOCKS_{r}" for r in _ROWS)
     for stem, prefix in (("fused_step", ""), ("fused_kid_step", ""),
                          ("fused_rates", "RATES_"), ("fused_post", "POST_"),
-                         ("table_stage", "TABLE_"))}
+                         ("table_stage", "TABLE_"), ("advect", "ADVECT_"))}
+# advect's instantiations by (warm, rates) of the others' labels: its
+# tracers (5 warm, 9 mixed) and its 2-D flag
+ADVECT_FLAGS = {True: 5, False: 9}
 OUT = Path(__file__).resolve().parent / "build" / "kid_tpu_torch" / "budget"
 F32, F64 = torch.float32, torch.float64
 
@@ -129,7 +136,8 @@ def resources(lib, stem, nz, dtype, warm, want_rates):
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     row = (ctypes.c_int * 4)()
-    err = fn(nz, int(dtype == F64), int(warm), int(want_rates),
+    flag = ADVECT_FLAGS[warm] if stem == "advect" else int(warm)
+    err = fn(nz, int(dtype == F64), flag, int(want_rates),
              ctypes.addressof(row))
     if err != 0:
         raise RuntimeError(f"{stem} resources: cudaError {err}")
@@ -218,6 +226,30 @@ def table_launch(chans, tables, cfg, dt):
         TS.launch(chans, tables, out, cfg, dt)
         return (out,)
     return launch
+
+
+def advect_launch(cell, dtype, dev):
+    """A launch of ``advect`` on ``chip_smoke.advect_inputs(cell, ...)``,
+    returning its head rows and its provisional theta."""
+    import kid_tpu_torch.driver.advection as ADV
+    st, m, tr, n_adv = C.advect_inputs(cell, dtype, dev)
+
+    def launch():
+        out = torch.empty((14, *st.qv.shape), dtype=dtype, device=dev)
+        theta = torch.empty(st.qv.shape, dtype=dtype, device=dev)
+        ADV.launch(st, m, tr, n_adv, out, theta)
+        return out, theta
+    return launch
+
+
+def advect_batches(dev, stems, cells, dtypes):
+    """[(label, "advect", launch)] on chip_smoke's ``ADVECT_CELLS``
+    ``cells`` in ``dtypes``, if ``stems`` names it."""
+    if "advect" not in stems:
+        return []
+    return [(f"{cell} {str(dtype)[6:]}", "advect",
+             advect_launch(cell, dtype, dev))
+            for cell in cells for dtype in dtypes]
 
 
 def step_batches(dev, stems):
@@ -316,7 +348,8 @@ def split_batches(dev, stems):
 
 def timed_inputs(dev, stems):
     """[(label, stem, launch)] at (8192, 120): the main paths' own inputs
-    after the spin-up (float32), then seeded warm and float64 batches."""
+    after the spin-up (float32), then seeded warm and float64 batches;
+    then ``advect`` on the loops' seeded cells (float32)."""
     import kid_tpu_torch.micro.fused_kid_step as FK
     import kid_tpu_torch.micro.fused_step as F
     import kid_tpu_torch.micro.split_step as A
@@ -399,7 +432,7 @@ def timed_inputs(dev, stems):
         if {"fused_rates", "fused_post"} & stems:
             xa, xb, cfg = split_inputs(C.MAIN_NX, 120, dtype, warm, dev)
             out += split_launches(label, xa, xb, cfg, 10.0, False, stems)
-    return out
+    return out + advect_batches(dev, stems, C.ADVECT_TARGETS, (F32,))
 
 
 def main() -> int:
@@ -451,6 +484,8 @@ def main() -> int:
                             label = _label(nz, dtype, warm, rates)
                             if stem == "table_stage":   # its aerosol flag
                                 label = label.replace("rates=", "aero=")
+                            if stem == "advect":        # its 2-D flag
+                                label = label.replace("rates=", "2d=")
                             print(f"resources {name} {stem} {label}: "
                                   f"{r[0]} regs, {r[1]} spill bytes, "
                                   f"{r[2]} static shared bytes, {r[3]} "
@@ -465,7 +500,9 @@ def main() -> int:
 
     # bit for bit against the first build
     n_same, fmad_differ, n_batches, differ = 0, 0, 0, []
-    for label, stem, launch in (step_batches(dev, set(stems))
+    for label, stem, launch in (advect_batches(dev, set(stems),
+                                               C.ADVECT_CELLS, (F32, F64))
+                                + step_batches(dev, set(stems))
                                 + split_batches(dev, set(stems))):
         using(libs[names[0]])
         want = launch()

@@ -43,8 +43,7 @@ import torch.distributed as dist
 from .. import spans
 from ..device import resolve_device
 from ..driver.advection import advective_tendency_x_padded
-from ..driver.loop import (BLOCKS, KidState, advected_fields, run_steps,
-                           wrap_x)
+from ..driver.loop import BLOCKS, KidState, advected_fields, run_steps
 
 HALO = 2                 # ghost columns per side of the MUSCL x stencil
 # a rank that waits this long for the others gives up (a peer has died)
@@ -189,8 +188,8 @@ class Halo:
     halves of one receive slab ``recv`` (2, n_adv, HALO, nz) beside a
     send slab ``send`` of the same shape: static buffers, which a CUDA
     graph of the step reads and writes in place.  ``swap`` fills the
-    ghosts inside the step, ``exchange`` between two steps; ``pad_x``,
-    the step's, only reads them."""
+    ghosts inside the step, ``exchange`` between two steps; the step's
+    transport (``driver.advection.advect``) reads them by index."""
 
     def __init__(self, case, dtype, device):
         self.idx = tuple(KidState._fields.index(f)
@@ -199,10 +198,6 @@ class Halo:
                                 dtype=dtype, device=device)
         self.recv = torch.zeros_like(self.send)
         self.left, self.right = self.recv
-
-    def pad_x(self, q):
-        """(n_adv, nloc, nz) -> (n_adv, nloc + 2*HALO, nz)."""
-        return torch.cat([self.left, q, self.right], 1)
 
     def swap(self, state: KidState, group):
         """The exchange inside the step, on the device: the right and the
@@ -285,7 +280,7 @@ def _simulate_sharded(state_local, tables, case, n_steps, group,
     # case and block, so that a later call replays the same capture
     block = BLOCKS.get(case, state_local.qv.dtype, state_local.qv.device, lo,
                        hi)
-    pad_x, exchange, in_step = wrap_x, None, False
+    ghosts, exchange, in_step = None, None, False
     if not case.is_1d:
         if hi - lo < HALO:
             raise ValueError(f"a block of {hi - lo} columns is narrower "
@@ -293,12 +288,12 @@ def _simulate_sharded(state_local, tables, case, n_steps, group,
         if block.halo is None:
             block.halo = Halo(case, state_local.qv.dtype,
                               state_local.qv.device)
-        pad_x = block.halo.pad_x
+        ghosts = block.halo
         in_step = exchange_in_step(group, state_local.qv.device)
         exchange = (StepExchange(block.halo, group) if in_step else
                     functools.partial(block.halo.exchange, group=group))
     return run_steps(state_local, tables, case, n_steps, profile_diags,
-                     istep0, dev, block, pad_x, graphs, exchange, in_step)
+                     istep0, dev, block, ghosts, graphs, exchange, in_step)
 
 
 def shard_state(state: KidState, rank: int, world_size: int) -> KidState:

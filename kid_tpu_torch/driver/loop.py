@@ -40,12 +40,11 @@ import torch
 from .. import constants as c
 from .. import spans
 from ..device import check_on, resolve_device
-from ..micro import ColumnState, batched_microphysics, cuda_build
+from ..micro import ColumnState, column_microphysics, cuda_build
 from ..micro.graphs import GRAPH_DEVICE_TYPES, LRUCache, capture
-from ..micro.solver import device_tables
+from ..micro.solver import device_tables, tv_keys
 from ..tables.cache import get_tables
-from .advection import (advective_tendency_x_padded, advective_tendency_z,
-                        divergence_tendency_z)
+from . import advection
 from .cases import Case
 
 # The opt-in fused driver step (micro/fused_kid_step.py) for 1-D,
@@ -57,6 +56,7 @@ CHUNK_STEPS = 16
 # column blocks kept (``BLOCKS``), each with its flow and at most one
 # captured step, which holds its step's intermediates on the card
 BLOCK_CACHE_SIZE = 4
+N_STATE = len(ColumnState._fields)
 
 
 class KidState(NamedTuple):
@@ -155,20 +155,28 @@ def advected_fields(cfg) -> tuple:
 
 
 def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
-              pad_x, profile_names: tuple):
+              ghosts, profile_names: tuple):
     """The per-step function (advect -> microphysics -> update).
 
     Args:
       w_pat:       (nx, nz+1) rho0*w z-face pattern.
       u_pat_faces: (nx+1, nz) rho0*u' x-face pattern; None for 1-D cases.
       pres2:       (nx, nz) pressure.
-      pad_x:       callable (n_adv, nx, nz) -> (n_adv, nx+4, nz) adding 2
-                   ghost columns per side; unused for 1-D cases.
+      ghosts:      where the 2 ghost columns a side of a 2-D case come
+                   from: None for the periodic wrap, or the block's
+                   ``dist.mesh.Halo``, whose buffers an exchange fills
+                   before the step reads them; unused for 1-D cases.
       profile_names: from ``resolve_profile_names``.
     Returns ``step(state, m) -> (new state, (4, nx) precip, profiles)``,
     with ``m`` the time modulation m(t) as a 0-d tensor of ``dtype`` on
     ``device``: the step reads no host value.
-    """
+
+    The transport, the provisional state and the head of the
+    microphysics' packed input are one call of ``advection.advect`` (on a
+    card one kernel), which writes into the rows of the first
+    microphysics kernel's input; the table stage writes its tail, and the
+    kernel reads it as it lies (``solver.column_microphysics``'s
+    ``packed``)."""
     dev = resolve_device(device)
     grid = case.grid()
 
@@ -184,7 +192,6 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
     dt = case.dt
     odt = 1.0 / dt
     cfg = case.micro
-    one_d = case.is_1d
     want_rates = any(n in RATE_NAMES for n in profile_names)
     # The fused driver step (advection of all 12 channels, provisional
     # state, Exner map and phases 2-20 in one kernel) is opt-in, as in the
@@ -193,53 +200,45 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
     # still reads this step's provisional state, built from
     # ``advected_fields`` only, so nc/nwfa/nifa differ from the default
     # path's (ROADMAP.md, Queue 3).
-    fused_driver = (one_d and not cfg.is_aerosol_aware
+    fused_driver = (case.is_1d and not cfg.is_aerosol_aware
                     and os.environ.get(FUSED_DRIVER_ENV, "0") == "1")
     if fused_driver:     # imported here: the module imports this one
         from ..micro.fused_kid_step import fused_kid_step, tv_out
         from ..micro.table_stage import table_stage
-    adv_fields = advected_fields(cfg)
-    adv_idx = tuple(KidState._fields.index(f) for f in adv_fields)
+    tr = advection.Transport(w_pat, u_pat_faces, rho0, dz, exner, pres2,
+                             case.u0, case.dx, dt, ghosts)
+    n_adv = len(advected_fields(cfg))
+    # the packed input: the head (the state channels and pres, then dzq
+    # for fused_step), then the table stage's tail; the fused driver's
+    # table stage reads a head of its own
+    n_head = N_STATE + (1 if cfg.is_aerosol_aware or fused_driver else 2)
+    n_tail = 0 if fused_driver else len(tv_keys(cfg))
+    shape = tuple(pres2.shape)
+    want_theta = "dtheta_mphys" in profile_names
 
     def step(st: KidState, m):
-        w_face = m * w_pat                       # rho0*w at z-faces
-        q = torch.stack([st[i] for i in adv_idx])
-        # 1-D: flux form plus the divergence closure; 2-D: the
-        # stream-function fluxes are non-divergent, so x-advection instead
-        ten = advective_tendency_z(q, w_face, rho0, dz)
-        if one_d:
-            ten = ten + divergence_tendency_z(q, w_face, rho0, dz)
-        else:
-            u_face = case.u0 * rho0[None, :] + m * u_pat_faces
-            ten = ten + advective_tendency_x_padded(pad_x(q), u_face, rho0,
-                                                    case.dx)
-        prov = q + ten * dt
-        w_cent = None                  # cell-centred w, for activation
-        if cfg.is_aerosol_aware:
-            w_vel = w_face / rho_face
-            w_cent = 0.5 * (w_vel[:, 1:] + w_vel[:, :-1])
-        prov_named = dict(st._asdict())
-        prov_named.update(zip(adv_fields, prov))
-        micro_in = ColumnState(
-            t=prov_named["theta"] * exner, qv=prov_named["qv"],
-            qc=prov_named["qc"], qi=prov_named["qi"], qr=prov_named["qr"],
-            qs=prov_named["qs"], qg=prov_named["qg"], ni=prov_named["ni"],
-            nr=prov_named["nr"], nc=prov_named["nc"],
-            nwfa=prov_named["nwfa"], nifa=prov_named["nifa"])
+        x = torch.empty((n_head + n_tail, *shape), dtype=dtype, device=dev)
+        theta = (torch.empty(shape, dtype=dtype, device=dev) if want_theta
+                 else None)
+        advection.advect(st, m, tr, n_adv, x[:n_head], theta)
+        micro_in = ColumnState(*x[:N_STATE])
+        pres = x[N_STATE]
         if fused_driver:
-            # the provisional state above feeds only the table stage, which
-            # writes into the rows the kernel's input ends with; the kernel
-            # derives its own state from the raw one
-            tv = table_stage(micro_in, pres2, tables, cfg, float(dt),
+            # the kernel derives its own state from the raw one
+            tv = table_stage(micro_in, pres, tables, cfg, float(dt),
                              out=tv_out(st, cfg))
             new, ppt, diag = fused_kid_step(
                 st, w_pat[0], m, tv, pres2[0], exner, rho0, dz, cfg,
                 float(dt), want_rates)
         else:
-            # the solver's body: this step is itself captured
-            out, ppt, diag = batched_microphysics(
-                micro_in, pres2, w_cent, dzq2, dt, tables, cfg,
-                want_rates=want_rates, device=dev, graphs=False)
+            w_cent = None              # cell-centred w, for activation
+            if cfg.is_aerosol_aware:
+                w_vel = m * w_pat / rho_face
+                w_cent = 0.5 * (w_vel[:, 1:] + w_vel[:, :-1])
+            dzq = dzq2 if cfg.is_aerosol_aware else x[N_STATE + 1]
+            out, ppt, diag = column_microphysics(
+                micro_in, pres, w_cent, dzq, dt, tables, cfg, want_rates,
+                packed=x)
             new = KidState(
                 theta=out.t / exner, qv=out.qv, qc=out.qc, qr=out.qr,
                 nr=out.nr, qi=out.qi, ni=out.ni, qs=out.qs, qg=out.qg,
@@ -253,7 +252,8 @@ def make_step(case: Case, tables, dtype, device, w_pat, u_pat_faces, pres2,
                 profs[name] = new_named[name]
             else:
                 f = name[1:-len("_mphys")]
-                profs[name] = (new_named[f] - prov_named[f]) * odt
+                prov = theta if f == "theta" else getattr(micro_in, f)
+                profs[name] = (new_named[f] - prov) * odt
         return new, torch.stack([ppt.rain, ppt.snow, ppt.graupel,
                                  ppt.ice]), profs
 
@@ -286,11 +286,6 @@ def build_flow(case: Case, dtype, device, lo: int = 0,
                  else put(case.rhou_pattern(grid, psi)[lo:hi + 1]))
         return Flow(put(case.rhow_pattern(grid, psi)[lo:hi]), u_pat,
                     torch.broadcast_to(put(grid.pres), (hi - lo, case.nz)))
-
-
-def wrap_x(q):
-    """Periodic ghost columns of (n_adv, nx, nz): 2 from each end."""
-    return torch.cat([q[:, -2:], q, q[:, :2]], 1)
 
 
 class StepLoop:
@@ -454,24 +449,23 @@ def simulate(state0: KidState, tables, case: Case, n_steps: int,
         check_on(state0.qv, dev)
         block = BLOCKS.get(case, state0.qv.dtype, state0.qv.device)
         return run_steps(state0, tables, case, n_steps, profile_diags,
-                         istep0, dev, block, wrap_x, graphs)
+                         istep0, dev, block, None, graphs)
 
 
 def run_steps(state0: KidState, tables, case: Case, n_steps: int,
-              profile_diags, istep0: int, device, block: Block, pad_x,
+              profile_diags, istep0: int, device, block: Block, ghosts,
               graphs: bool = True, exchange=None, in_step: bool = False):
     """The time loop of ``simulate`` over the columns that ``state0``
     holds, which may be a block of the case's columns: ``block`` holds
-    those columns' flow (see ``BLOCKS``), and ``pad_x`` fills their ghost
-    columns (see ``make_step``) with no host work.  With ``graphs`` on a
+    those columns' flow (see ``BLOCKS``), and ``ghosts`` says where their
+    ghost columns come from (see ``make_step``).  With ``graphs`` on a
     CUDA device the step is captured on ``block`` once per (profile names,
-    fused-driver switch, ``tables``, ``pad_x``, the exchange it holds) and
-    replayed; ``pad_x`` must be the same object, or an equal one, in every
-    call on a block (``wrap_x``, or the block's ``Halo.pad_x``), or each
-    call captures again.
+    fused-driver switch, ``tables``, ``ghosts``, the exchange it holds) and
+    replayed; ``ghosts`` must be the same in every call on a block (None,
+    or the block's ``Halo``), or each call captures again.
 
-    ``exchange(state)``, if given, fills the ghost buffers that ``pad_x``
-    reads from the loop's current state (a sharded run's halo exchange),
+    ``exchange(state)``, if given, fills the ghost buffers of ``ghosts``
+    from the loop's current state (a sharded run's halo exchange),
     once a step.  ``in_step`` says where: as the step's first op
     (``StepLoop.advance``), so that a capture holds it and one replay is
     one whole step; ``exchange.count(n)`` then counts ``n`` steps'
@@ -501,12 +495,12 @@ def run_steps(state0: KidState, tables, case: Case, n_steps: int,
 
         def new_loop():
             step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
-                             fl.pres2, pad_x, names)
+                             fl.pres2, ghosts, names)
             return StepLoop(step, shape, dtype, dev, names, held)
 
         if graphs and dev.type in GRAPH_DEVICE_TYPES:
             key = (names, os.environ.get(FUSED_DRIVER_ENV, "0"), id(tables),
-                   pad_x, held)
+                   ghosts, held)
             captured = block.capture(key, lambda: CapturedStep(
                 new_loop(), state0, key, tables))
             captured.load(state0)

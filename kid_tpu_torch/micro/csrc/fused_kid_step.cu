@@ -6,9 +6,10 @@
 // Replaces kid_tpu/micro/pallas_step.py::fused_kid_step (the Pallas TPU
 // kernel of the opt-in fused driver).  Its plain PyTorch version is
 // kid_tpu_torch/micro/fused_kid_step.py::fused_kid_step_ref; the advection
-// below transcribes kid_tpu_torch/driver/advection.py in the same
-// association order, and the microphysics is the prologue -> rates -> post
-// of thompson.cuh that fused_step.cu runs.
+// below, with thompson.cuh's face_value (which advect.cu shares),
+// transcribes kid_tpu_torch/driver/advection.py in the same association
+// order, and the microphysics is the prologue -> rates -> post of
+// thompson.cuh that fused_step.cu runs.
 //
 // Boundary: the raw state in KidState order (theta, qv, qc, qr, nr, qi, ni,
 // qs, qg, nc, nwfa, nifa) and the 18 table-stage channels (1 warm) go in,
@@ -46,30 +47,6 @@ enum KidCh {
 };
 // rows of the profile input, each nz + 1 long
 enum ProfRow { R_wpat, R_pres, R_exner, R_rho0, R_dz };
-
-// van Leer limiter phi(r) = (r + |r|) / (1 + |r|)
-template <typename T> __device__ __forceinline__ T vanleer(T r) {
-  return (r + fabs(r)) / ((T)1.0 + fabs(r));
-}
-
-// the upwind MUSCL value at interior face j (1 <= j <= nz-1, between
-// levels j-1 and j) of the column ``s`` (advection._muscl_face_values on
-// the edge-padded column)
-template <typename T>
-__device__ __forceinline__ T face_value(const T* s, int j, int nz, T vel) {
-  const T eps = (T)1e-30;
-  const T qm2 = s[j >= 2 ? j - 2 : 0], qm1 = s[j - 1], q0 = s[j];
-  const T qp1 = s[j + 1 < nz ? j + 1 : nz - 1];
-  const T d_lo = qm1 - qm2;   // q_{j-1} - q_{j-2}
-  const T d_mid = q0 - qm1;   // q_j - q_{j-1}
-  const T d_hi = qp1 - q0;    // q_{j+1} - q_j
-  const T den = fabs(d_mid) > eps ? d_mid : eps;
-  const T slope_up = vanleer(d_lo / den) * d_mid;
-  const T slope_dn = vanleer(d_hi / den) * d_mid;
-  const T q_left = qm1 + (T)0.5 * slope_up;
-  const T q_right = q0 - (T)0.5 * slope_dn;
-  return vel >= (T)0.0 ? q_left : q_right;
-}
 
 template <typename T, bool WARM, bool RATES, int BLOCK>
 __global__ void __launch_bounds__(BLOCK,

@@ -8,6 +8,8 @@
 //   fused_post.cu   prologue, load p8 and the phase-14 lookups -> post
 //                   (aerosol, phases 12-20)
 //   fused_kid_step.cu  advection, Exner map, prologue -> rates -> post
+//   advect.cu       the driver step's advection and provisional state
+//                   (only the MUSCL helpers below: vanleer, face_value)
 //
 // The stages transcribe kid_tpu_torch/micro/solver.py expression by
 // expression, in the same association order: ``prologue`` is
@@ -19,8 +21,9 @@
 // adds the aerosol-aware branches; with AERO false the arithmetic is the
 // non-aerosol kernel's, bit for bit.
 //
-// Mapping (every kernel): one thread block per column, one thread per
-// level (blockDim = nz rounded up to 32, so at most 8 warps); padding
+// Mapping (every kernel but advect.cu, whose own notes give its tiles):
+// one thread block per column, one thread per level (blockDim = nz
+// rounded up to 32, so at most 8 warps); padding
 // threads mirror the top level and store nothing.  Elementwise phases run
 // per thread in registers.  The vertical structures are warp-level: the
 // graupel-N0 suffix minimum and the fall-speed fill-down scan inside each
@@ -42,8 +45,9 @@
 // of 128 threads per SM, per kernel and per (dtype, warm/mixed), chosen
 // on the card with kernel_budget.py: MIN_BLOCKS_* for fused_step.cu and
 // fused_kid_step.cu (f32 mixed 5: 96 registers), RATES_MIN_BLOCKS_* for
-// fused_rates.cu (5: 96), POST_MIN_BLOCKS_* for fused_post.cu (8: 64)
-// and TABLE_MIN_BLOCKS_* for table_stage.cu.
+// fused_rates.cu (5: 96), POST_MIN_BLOCKS_* for fused_post.cu (8: 64),
+// TABLE_MIN_BLOCKS_* for table_stage.cu and ADVECT_MIN_BLOCKS_* for
+// advect.cu (f32 10: 5 of its blocks of 256 threads).
 // The aerosol kernels also skip, warp by warp, the chains whose values
 // their masks discard (``guard``) and plan powc at compile time (POWC).
 // Nothing but the exchange slots (and fused_kid_step's raw column) lives
@@ -90,6 +94,53 @@ template <typename T> __device__ __forceinline__ int trunc_int(T x, T lo,
   if (!(x >= lo)) return (int)lo;
   if (x > hi) return (int)hi;
   return (int)x;
+}
+
+// The driver's MUSCL transport (kid_tpu_torch/driver/advection.py), shared
+// by fused_kid_step.cu (z only) and advect.cu (z and x).  Each helper takes
+// the division it divides with: the compiler's IEEE division by default,
+// or advect.cu's branch-free one, which gives the same quotients where it
+// says it is exact.
+struct IeeeDiv {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return a / b;
+  }
+};
+
+// van Leer limiter phi(r) = (r + |r|) / (1 + |r|)
+template <typename T, typename Div = IeeeDiv>
+__device__ __forceinline__ T vanleer(T r, Div div = {}) {
+  return div(r + fabs(r), (T)1.0 + fabs(r));
+}
+
+// the upwind MUSCL value at the face between cells qm1 and q0, from the
+// four cells qm2, qm1, q0, qp1 around it and the face's mass flux ``vel``
+// (advection._muscl_face_values: both one-sided ratios share the
+// denominator of the face's own difference).  The plain version computes
+// the left and the right value and selects one by the sign of ``vel``;
+// only the selected one is computed here, with the same operations, so
+// the face takes two divisions, not four, and the same bits.
+template <typename T, typename Div = IeeeDiv>
+__device__ __forceinline__ T muscl_face(T qm2, T qm1, T q0, T qp1, T vel,
+                                        Div div = {}) {
+  const T eps = (T)1e-30;
+  const bool up = vel >= (T)0.0;
+  const T d_mid = q0 - qm1;                   // q_j - q_{j-1}
+  const T d_out = up ? qm1 - qm2 : qp1 - q0;  // q_{j-1} - q_{j-2}, or
+                                              // q_{j+1} - q_j
+  const T den = fabs(d_mid) > eps ? d_mid : eps;
+  const T slope = vanleer(div(d_out, den), div) * d_mid;
+  return up ? qm1 + (T)0.5 * slope : q0 - (T)0.5 * slope;
+}
+
+// the value at interior z-face j (1 <= j <= nz-1, between levels j-1 and
+// j) of the column ``s``, which is padded by repeating its end levels
+template <typename T, typename Div = IeeeDiv>
+__device__ __forceinline__ T face_value(const T* s, int j, int nz, T vel,
+                                        Div div = {}) {
+  return muscl_face(s[j >= 2 ? j - 2 : 0], s[j - 1], s[j],
+                    s[j + 1 < nz ? j + 1 : nz - 1], vel, div);
 }
 
 // The guards.  A chain whose value no output reads outside ``mask`` runs
@@ -1803,7 +1854,8 @@ inline int block_threads(int nz) {
 // The register budgets: how many blocks of 128 threads must fit on an SM,
 // by dtype and warm/mixed, for fused_step.cu and fused_kid_step.cu
 // (MIN_BLOCKS_*), fused_rates.cu (RATES_MIN_BLOCKS_*), fused_post.cu
-// (POST_MIN_BLOCKS_*) and table_stage.cu (TABLE_MIN_BLOCKS_*).  Chosen on
+// (POST_MIN_BLOCKS_*), table_stage.cu (TABLE_MIN_BLOCKS_*) and advect.cu
+// (ADVECT_MIN_BLOCKS_*, whose blocks have up to 256 threads).  Chosen on
 // the card (PERF.md); kernel_budget.py rebuilds with -D to time others.
 #ifndef MIN_BLOCKS_F32_MIXED
 #define MIN_BLOCKS_F32_MIXED 5
@@ -1853,6 +1905,18 @@ inline int block_threads(int nz) {
 #ifndef TABLE_MIN_BLOCKS_F64_WARM
 #define TABLE_MIN_BLOCKS_F64_WARM 4
 #endif
+#ifndef ADVECT_MIN_BLOCKS_F32_MIXED
+#define ADVECT_MIN_BLOCKS_F32_MIXED 10
+#endif
+#ifndef ADVECT_MIN_BLOCKS_F32_WARM
+#define ADVECT_MIN_BLOCKS_F32_WARM 10
+#endif
+#ifndef ADVECT_MIN_BLOCKS_F64_MIXED
+#define ADVECT_MIN_BLOCKS_F64_MIXED 6
+#endif
+#ifndef ADVECT_MIN_BLOCKS_F64_WARM
+#define ADVECT_MIN_BLOCKS_F64_WARM 6
+#endif
 // the budget of one (dtype, warm/mixed) among a kernel's four
 template <typename T, bool WARM>
 constexpr int pick_budget(int f32_mixed, int f32_warm, int f64_mixed,
@@ -1876,6 +1940,11 @@ template <typename T, bool WARM>
 constexpr int kTableMinBlocks = pick_budget<T, WARM>(
     TABLE_MIN_BLOCKS_F32_MIXED, TABLE_MIN_BLOCKS_F32_WARM,
     TABLE_MIN_BLOCKS_F64_MIXED, TABLE_MIN_BLOCKS_F64_WARM);
+// advect.cu's: warm is its set of 5 tracers, mixed those of 9 and 12
+template <typename T, bool WARM>
+constexpr int kAdvectMinBlocks = pick_budget<T, WARM>(
+    ADVECT_MIN_BLOCKS_F32_MIXED, ADVECT_MIN_BLOCKS_F32_WARM,
+    ADVECT_MIN_BLOCKS_F64_MIXED, ADVECT_MIN_BLOCKS_F64_WARM);
 
 // the second argument of __launch_bounds__(block, ...) for a kernel that
 // must fit ``per128`` blocks of 128 threads on an SM: the same register

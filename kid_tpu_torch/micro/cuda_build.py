@@ -222,18 +222,22 @@ def tail_rows(n_head: int, n_tail: int, like) -> torch.Tensor:
     return buf[n_head:]
 
 
+def _is_row(t, base, i: int) -> bool:
+    """Whether ``t`` is row ``i`` of ``base``."""
+    return (t._base is base and t.shape == base.shape[1:]
+            and t.stride() == base.stride()[1:]
+            and t.storage_offset() == base.storage_offset()
+            + i * base.stride(0))
+
+
 def _tail_of(tail, n_head: int, shape):
     """The buffer whose last rows ``tail`` are (``tail_rows``), or None."""
     base = tail[0]._base
     if (base is None or tuple(base.shape) != (n_head + len(tail), *shape)
             or not base.is_contiguous()):
         return None
-    for i, t in enumerate(tail):
-        if (t._base is not base or t.shape != shape
-                or t.stride() != base.stride()[1:]
-                or t.storage_offset() != base.storage_offset()
-                + (n_head + i) * base.stride(0)):
-            return None
+    if not all(_is_row(t, base, n_head + i) for i, t in enumerate(tail)):
+        return None
     return base
 
 
@@ -241,15 +245,18 @@ def pack(head, tail, shape) -> torch.Tensor:
     """A kernel's packed input, one contiguous (len(head) + len(tail),
     *shape) tensor: the ``head`` channels, then the ``tail`` channels,
     each broadcast to ``shape``.  Where ``tail`` is already the last rows
-    of such a tensor (``tail_rows``), the head is copied into it and it is
-    returned; otherwise every channel is stacked into a new one."""
+    of such a tensor (``tail_rows``), the head is copied into it, unless
+    it already is its first rows (the driver step's, which
+    ``driver.advection.advect`` writes there), and it is returned;
+    otherwise every channel is stacked into a new one."""
     shape = tuple(shape)
     head = [torch.broadcast_to(t, shape) for t in head]
     base = _tail_of(tail, len(head), shape)
     if base is None:
         return torch.stack(head + [torch.broadcast_to(t, shape)
                                    for t in tail])
-    torch.stack(head, out=base[:len(head)])
+    if not all(_is_row(t, base, i) for i, t in enumerate(head)):
+        torch.stack(head, out=base[:len(head)])
     return base
 
 
@@ -271,7 +278,9 @@ def resources(stem: str, nz: int, dtype, iiwarm: bool,
     bytes per thread, static shared bytes per block and active blocks per
     SM at its block size (``kid_<stem>_resources``).  For ``table_stage``,
     which has no rate profiles, ``want_rates`` selects the aerosol-aware
-    instantiation."""
+    instantiation; for ``advect``, ``iiwarm`` is the number of advected
+    tracers and ``want_rates`` the 2-D flag (its shared bytes include the
+    tile's slabs)."""
     fn = getattr(LIBRARIES.get(stem), f"kid_{stem}_resources")
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -294,8 +303,10 @@ def build() -> float:
 def wrappers() -> dict:
     """Every kernel's wrapper by kernel name; each counts its launches in
     ``.launches``."""
+    from ..driver import advection
     from . import fused_kid_step, fused_step, split_step, table_stage
-    return {"table_stage": table_stage.table_stage,
+    return {"advect": advection.advect,
+            "table_stage": table_stage.table_stage,
             "fused_step": fused_step.fused_step,
             "fused_rates": split_step.fused_rates,
             "fused_post": split_step.fused_post,

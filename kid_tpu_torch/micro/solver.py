@@ -1640,7 +1640,7 @@ def aerosol_lookup_stage(state: ColumnState, pres, w1d, p8,
 
 def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
                         tables: DeviceTables, cfg: MicroConfig,
-                        want_rates: bool = True):
+                        want_rates: bool = True, packed=None):
     """One microphysics timestep on a batch of (ncol, nz) columns.
 
     ``table_stage`` (``_prologue`` and ``_table_stage``: the lookup
@@ -1650,6 +1650,10 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
     launches its CUDA kernel for a CUDA tensor and runs its plain version
     for a CPU tensor.  ``w1d`` (the
     cell-centred vertical velocity, m/s) feeds aerosol activation only.
+    ``packed``, if given, is the first kernel's packed input whose head
+    rows ``state``, ``pres`` (and, for ``fused_step``, ``dzq``) already
+    are (the driver step's, ``driver.advection.advect``): the table stage
+    writes its tail, and the packs copy nothing.
     Returns (new ColumnState, Precip, dict of process-rate profiles)."""
     from . import fused_step as F
     from . import split_step as A
@@ -1660,8 +1664,9 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
     dt_f = float(dt)
     # the tv channels go into the rows the next kernel's input ends with
     kernel = A if cfg.is_aerosol_aware else F
-    tv = T.table_stage(state, pres, tables, cfg, dt_f,
-                       out=kernel.tv_out(state, cfg))
+    tv_rows = (kernel.tv_out(state, cfg) if packed is None
+               else packed[len(packed) - len(tv_keys(cfg)):])
+    tv = T.table_stage(state, pres, tables, cfg, dt_f, out=tv_rows)
     if not cfg.is_aerosol_aware:
         return F.fused_step(state, pres, dzq, tv, cfg, dt_f, want_rates)
     p8 = A.fused_rates(state, pres, tv, cfg, dt_f, want_rates)
@@ -1682,8 +1687,9 @@ def batched_microphysics(state: ColumnState, pres, w, dzq, dt,
     per (shapes, dtype, device, ``cfg``, ``dt``, ``want_rates``, tables)
     and replayed (``graphs.run``); ``graphs=False`` and the CPU run it
     eagerly.  A failed capture raises.  The outputs are the caller's own.
-    Never call the graphed form inside another capture: ``simulate``'s
-    step and ``mp_driver_3d`` take ``graphs=False``."""
+    Never call the graphed form inside another capture: ``mp_driver_3d``
+    takes ``graphs=False``, and ``simulate``'s step calls
+    ``column_microphysics`` itself."""
     from . import graphs as G
     dev = resolve_device(device)
     for t in (*state, pres, dzq):

@@ -47,7 +47,7 @@ from .. import records
 from ..device import resolve_device
 from ..driver.cases import CASES
 from ..driver.loop import (BLOCKS, CapturedStep, KidState, StepLoop, drive,
-                           initial_state, make_step, wrap_x)
+                           initial_state, make_step)
 from ..micro import cuda_build
 from ..micro.graphs import GRAPH_DEVICE_TYPES
 from ..micro.solver import device_tables
@@ -136,7 +136,7 @@ def member_loop(case, tables, state0: KidState, noise=None,
     dtype, dev = state0.qv.dtype, state0.qv.device
     fl = BLOCKS.get(case, dtype, dev).flow
     step = make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat, fl.pres2,
-                     wrap_x, TARGET_FIELDS)
+                     None, TARGET_FIELDS)
     if noise is not None:
         step = noisy_step(step, noise, eps)
     loop = StepLoop(step, tuple(state0.qv.shape), dtype, dev, TARGET_FIELDS)

@@ -12,7 +12,7 @@ then on 2 and 4 NCCL ranks (``dist.launch.default_layout``), each rank
 graphed (its step, the halo exchange first, replayed as one CUDA graph)
 and eager.  Every sharded run must equal the single process bit for bit
 (the final fields and the four precip series), with the exchange in the
-step, one halo exchange and one ``table_stage`` and one ``fused_step``
+step, one halo exchange and one ``advect``, ``table_stage`` and ``fused_step``
 launch a step on every rank, and no host time in the exchange when
 graphed (the replays hold it).  Then each case once more, graphed on the
 most ranks, with ``PROFILED`` more steps under the profiler, which must
@@ -41,7 +41,7 @@ from kid_tpu_torch.driver.cases import CUMULUS2D  # noqa: E402
 
 FLAGSHIP = dataclasses.replace(CUMULUS2D, nx=131072, cell_nx=CUMULUS2D.nx)
 # the kernels of a step, each launched once
-STEP_KERNELS = ("table_stage", "fused_step")
+STEP_KERNELS = ("advect", "table_stage", "fused_step")
 # (case, steps timed, warm-up steps)
 RUNS = ((CUMULUS2D, 300, 20), (FLAGSHIP, 20, 20))
 PROFILED = 5           # steps of each rank's profiled window

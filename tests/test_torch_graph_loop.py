@@ -42,6 +42,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from kid_tpu_torch.dist import mesh as M
+from kid_tpu_torch.driver import advection as ADV
 from kid_tpu_torch.driver import cases as tcases
 from kid_tpu_torch.driver import loop as L
 from kid_tpu_torch.driver.loop import KidState
@@ -115,7 +116,7 @@ def _per_step_loop(st, tables, case, n_steps, names, istep0):
     step = L.make_step(case, tables, dtype, "cpu",
                        put(case.rhow_pattern(grid)), u_pat,
                        torch.broadcast_to(put(grid.pres), st.qv.shape),
-                       L.wrap_x, names)
+                       None, names)
     fused = os.environ.get(L.FUSED_DRIVER_ENV) == "1"
     ppt = torch.empty((n_steps, 4, case.nx), dtype=dtype)
     profiles = {n: torch.empty((n_steps,) + st.qv.shape, dtype=dtype)
@@ -224,7 +225,13 @@ def _stub_precip(like):
 
 
 def _stub_kernels(monkeypatch, calls):
-    """Shape-correct stand-ins for the five kernel wrappers."""
+    """Shape-correct stand-ins for the six kernel wrappers."""
+    def advect(st, m, tr, n_adv, out, theta_out=None):
+        calls.append("advect")
+        assert m.dim() == 0 and m.device == st[0].device == out.device
+        assert out.shape == (out.shape[0], *st[0].shape)
+        return out
+
     def table_stage(state, pres, tables, cfg, dt_f, out=None):
         calls.append("table_stage")
         keys = S.tv_keys(cfg)
@@ -264,6 +271,7 @@ def _stub_kernels(monkeypatch, calls):
                 if rest[-1] else {})
         return _stub_state(KidState, st.qv), _stub_precip(st.qv), diag
 
+    monkeypatch.setattr(ADV, "advect", advect)
     monkeypatch.setattr(TS, "table_stage", table_stage)
     monkeypatch.setattr(F, "fused_step", fused_step)
     monkeypatch.setattr(A, "fused_rates", fused_rates)
@@ -286,7 +294,7 @@ def test_step_makes_no_host_sync(name, monkeypatch):
     names = L.ALL_PROFILE_NAMES
     lo, hi = M.column_block(case.nx, 0, 2) if sharded else (0, case.nx)
     halo = M.Halo(case, dtype, dev)
-    pad_x = halo.pad_x if sharded else L.wrap_x
+    ghosts = halo if sharded else None
     exchange = None
     if name == "sharded_in_step":
         _world(monkeypatch, 2, 0)
@@ -295,7 +303,7 @@ def test_step_makes_no_host_sync(name, monkeypatch):
         exchange = M.StepExchange(halo, None)
     fl = L.build_flow(case, dtype, dev, lo, hi)
     step = L.make_step(case, tables, dtype, dev, fl.w_pat, fl.u_pat,
-                       fl.pres2, pad_x, names)
+                       fl.pres2, ghosts, names)
     shape = (hi - lo, case.nz)
     loop = L.StepLoop(step, shape, dtype, dev, names, exchange)
     loop.state = KidState(*[t[lo:hi]
@@ -305,13 +313,15 @@ def test_step_makes_no_host_sync(name, monkeypatch):
     n_warm = len(calls)
     with NoHostSync():
         loop.step_in_place()      # what the capture records
-    want = {"mixed1": ["table_stage", "fused_step"],
-            "warm1_recon": ["table_stage", "fused_step"],
-            "cumulus2d": ["table_stage", "fused_step"],
-            "fused": ["table_stage", "fused_kid_step"],
-            "aerosol1d": ["table_stage", "fused_rates", "fused_post"],
-            "sharded": ["table_stage", "fused_step"],
-            "sharded_in_step": ["ring", "table_stage", "fused_step"]}[name]
+    want = {"mixed1": ["advect", "table_stage", "fused_step"],
+            "warm1_recon": ["advect", "table_stage", "fused_step"],
+            "cumulus2d": ["advect", "table_stage", "fused_step"],
+            "fused": ["advect", "table_stage", "fused_kid_step"],
+            "aerosol1d": ["advect", "table_stage", "fused_rates",
+                          "fused_post"],
+            "sharded": ["advect", "table_stage", "fused_step"],
+            "sharded_in_step": ["ring", "advect", "table_stage",
+                                "fused_step"]}[name]
     assert calls[n_warm:] == want
     assert loop.profiles["prr_wau"].shape == (L.CHUNK_STEPS,) + shape
 
@@ -510,9 +520,9 @@ def test_sharded_path_takes_the_eager_loop(monkeypatch):
         for kwargs in ({}, {"graphs": False}):
             assert M.simulate_sharded(local, None, case, 3, None,
                                       device="cpu", **kwargs) == "ran"
-    (*_, block, pad_x, graphs, exchange, in_step), second = seen
+    (*_, block, ghosts, graphs, exchange, in_step), second = seen
     assert graphs is True and second[9] is False
-    assert pad_x == block.halo.pad_x == second[8]
+    assert ghosts is block.halo is second[8]
     # on the CPU the step holds the exchange
     assert in_step is True and exchange == M.StepExchange(block.halo, None)
     grid = case.grid()

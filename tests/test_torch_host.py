@@ -22,6 +22,7 @@ from kid_tpu.tables.cache import get_tables as j_get_tables
 from kid_tpu_torch import special as tspecial
 from kid_tpu_torch.__main__ import main as cli_main
 from kid_tpu_torch.convert import state_from_numpy, tables_from_numpy
+from kid_tpu_torch.driver import advection as adv
 from kid_tpu_torch.driver.cases import AEROSOL1D, MIXED1, WARM1_RECON
 from kid_tpu_torch.driver.loop import initial_state, run_case
 from kid_tpu_torch.micro import fastmath as tfast
@@ -312,6 +313,10 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
     monkeypatch.setattr(ss, "launch_rates_packed", stub("fused_rates"))
     monkeypatch.setattr(ss, "launch_post_packed", stub("fused_post"))
     monkeypatch.setattr(ts, "launch", stub("table_stage"))
+    monkeypatch.setattr(C, "advect_inputs", lambda cell, dtype, dev: (
+        SimpleNamespace(qv=packed[0]), None, None, 5))
+    monkeypatch.setattr(adv, "launch", lambda st, m, tr, n_adv, *out:
+                        seen.append(("advect", st.qv.dtype, None)))
     launches = K.timed_inputs(torch.device("cpu"), set(K.STEMS))
     for label, stem, fn in launches:
         fn()
@@ -322,7 +327,9 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
     assert [s[2].is_aerosol_aware for s in seen[:6]] == [False] * 3 + [
         True] * 3
     assert [stem for _, stem, _ in launches] == [s[0] for s in seen]
-    assert len(launches) == 6 + 3 * 4
+    # then advect on the loops' two cells
+    assert len(launches) == 6 + 3 * 4 + 2
+    assert [stem for _, stem, _ in launches[-2:]] == ["advect"] * 2
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
