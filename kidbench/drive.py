@@ -38,7 +38,8 @@ import torch
 from . import compare
 from .inputs import column_sample, example_tile, initial_state
 from .reference import wrf
-from .reference.kid import FIELDS, PPT, KidCase, advance, to_bfloat16
+from .reference.kid import (FIELDS, PPT, SOUNDINGS, KidCase, advance,
+                             to_bfloat16)
 from .reference.pool import Solver
 from .trace import TraceSummary, traced
 
@@ -63,7 +64,8 @@ def sync(dev):
 
 def program_case(cfg: dict):
     """The program's ``Case`` for the configuration; raises where the
-    program's case differs from what the file states."""
+    program's case differs from what the file states: a scalar of the
+    case, a switch of the scheme, or a sounding (``check_soundings``)."""
     from kid_tpu_torch.driver.cases import CASES
     case = dataclasses.replace(CASES[cfg["program_case"]], nx=cfg["nx"],
                                cell_nx=cfg["cell_nx"],
@@ -73,7 +75,42 @@ def program_case(cfg: dict):
             raise ValueError(f"the program's {case.name} has {k} = "
                              f"{getattr(case, k)!r}, the configuration "
                              f"{cfg[k]!r}")
-    return dataclasses.replace(case, micro=micro_config(cfg))
+    micro = micro_config(cfg)
+    for f in dataclasses.fields(micro):
+        if f.name != "dtype" and (getattr(micro, f.name)
+                                  != getattr(case.micro, f.name)):
+            raise ValueError(f"the program's {case.name} has {f.name} = "
+                             f"{getattr(case.micro, f.name)!r}, the "
+                             f"configuration {getattr(micro, f.name)!r}")
+    check_soundings(cfg, case)
+    return dataclasses.replace(case, micro=micro)
+
+
+SOUNDING_RTOL = 1e-12
+
+
+def check_soundings(cfg: dict, case):
+    """Holds the file's soundings (theta, qv, nwfa, nifa; an absent nwfa
+    or nifa stands for the fills) against the program's initial state of
+    ``case`` at the cell centres, in float64, to ``SOUNDING_RTOL``;
+    raises naming the field and its worst level."""
+    from kid_tpu_torch.driver.loop import initial_state as program_state
+    ref = KidCase(cfg)
+    mine = ref.initial_profiles()
+    theirs = program_state(dataclasses.replace(case, nx=1, cell_nx=0),
+                           torch.float64, "cpu")
+    for f in SOUNDINGS:
+        want = getattr(theirs, f)[0].numpy()
+        gap = np.abs(mine[f] - want)
+        rel = np.divide(gap, np.abs(want), where=want != 0,
+                        out=np.where(gap == 0, 0.0, np.inf))
+        k = int(np.argmax(rel))
+        if not rel[k] <= SOUNDING_RTOL:
+            raise ValueError(
+                f"the program's {case.name} has {f} = {float(want[k])!r} "
+                f"at level {k} ({float(ref.grid.z[k])!r} m), the "
+                f"configuration {float(mine[f][k])!r}: {rel[k]:.3g} apart, "
+                f"over {SOUNDING_RTOL:g}")
 
 
 def micro_config(cfg: dict):

@@ -32,6 +32,8 @@ from .oracle import mp_thompson_oracle
 FIELDS = ("theta", "qv", "qc", "qr", "nr", "qi", "ni", "qs", "qg", "nc",
           "nwfa", "nifa")
 PPT = ("rain", "snow", "graupel", "ice")
+# the fields a configuration states as soundings; nwfa and nifa optional
+SOUNDINGS = ("theta", "qv", "nwfa", "nifa")
 # (field, oracle output key) of the fields the solver returns
 _OUT_KEYS = (("qv", "qv1d"), ("qc", "qc1d"), ("qr", "qr1d"), ("nr", "nr1d"),
              ("qi", "qi1d"), ("ni", "ni1d"), ("qs", "qs1d"), ("qg", "qg1d"),
@@ -68,7 +70,10 @@ def make_grid(nz: int, ztop: float, theta_prof: np.ndarray) -> Grid:
 
 def sounding(spec: dict, z: np.ndarray) -> np.ndarray:
     """A profile of the configuration: ``linear`` (``at_0 + per_m * z``),
-    ``exp`` (``at_0 * exp(-z / scale_m)``) or ``const`` (``at_0``)."""
+    ``exp`` (``at_0 * exp(-z / scale_m)``), ``const`` (``at_0``) or
+    ``piecewise`` (linear between the points ``z_m``, ``values``, which
+    rise strictly in ``z_m``, and flat beyond the ends, as ``np.interp``
+    computes it)."""
     kind = spec["kind"]
     if kind == "linear":
         return spec["at_0"] + spec["per_m"] * z
@@ -76,6 +81,14 @@ def sounding(spec: dict, z: np.ndarray) -> np.ndarray:
         return spec["at_0"] * np.exp(-z / spec["scale_m"])
     if kind == "const":
         return np.full_like(z, spec["at_0"], dtype=np.float64)
+    if kind == "piecewise":
+        zp = np.asarray(spec["z_m"], np.float64)
+        vp = np.asarray(spec["values"], np.float64)
+        if zp.ndim != 1 or zp.shape != vp.shape or not np.all(
+                np.diff(zp) > 0):
+            raise ValueError("a piecewise sounding needs as many values "
+                             "as heights, the heights rising strictly")
+        return np.interp(z, zp, vp)
     raise ValueError(f"unknown sounding kind {kind!r}")
 
 
@@ -116,8 +129,9 @@ class KidCase:
 
     def initial_profiles(self) -> dict:
         """(nz,) float64 profiles of every field at t = 0: the sounding,
-        dry and cloud-free, with the non-aerosol number fills
-        (f90:957-964)."""
+        dry and cloud-free; nwfa and nifa (per kg) from the file's
+        soundings of them, where it has them, else the non-aerosol number
+        fills (f90:957-964)."""
         g = self.grid
         zero = np.zeros(self.nz)
         out = {f: zero for f in FIELDS}
@@ -125,6 +139,8 @@ class KidCase:
                    qv=sounding(self.cfg["qv"], g.z),
                    nc=self.scheme["set_nc"] * 1.0e6 / g.rho0,
                    nwfa=11.1e6 / g.rho0, nifa=c.NA_IN1 * 0.01 / g.rho0)
+        out.update({f: sounding(self.cfg[f], g.z) for f in SOUNDINGS[2:]
+                    if f in self.cfg})
         return out
 
     def modulation(self, istep: int) -> float:

@@ -53,6 +53,7 @@ def io_bytes(cfg: dict) -> int:
 def count_ops(cfg: dict, ncol: int) -> int:
     """Elementwise ops of the plain version of one step at ``ncol``
     columns of the case's state after ``STATE_STEPS`` steps, on the CPU."""
+    import numpy as np
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -95,9 +96,20 @@ def count_ops(cfg: dict, ncol: int) -> int:
     shape = state.qv.shape
     pres = torch.as_tensor(grid.pres, dtype=dtype).expand(shape)
     dzq = torch.as_tensor(grid.dz, dtype=dtype).expand(shape)
+    w_cent = None
+    if case.micro.is_aerosol_aware:
+        # the cell-centred w of the step after STATE_STEPS, as the
+        # program's step gives it to the aerosol-aware scheme
+        rho_face = np.concatenate([grid.rho0[:1],
+                                   0.5 * (grid.rho0[1:] + grid.rho0[:-1]),
+                                   grid.rho0[-1:]])
+        w = (case.time_modulation(STATE_STEPS, dtype)
+             * case.rhow_pattern(grid) / rho_face)
+        w_cent = wide(torch.as_tensor(0.5 * (w[:, 1:] + w[:, :-1]),
+                                      dtype=dtype))
     counter = Counter()
     with counter:
-        column_microphysics(state, pres, None, dzq, case.dt, tables,
+        column_microphysics(state, pres, w_cent, dzq, case.dt, tables,
                             case.micro, want_rates=False)
     return counter.ops
 
