@@ -22,7 +22,8 @@ the streams into chunk buffers (``driver/loop.py::StepLoop``).  Here:
     replay adds the captured launches; the caller gets tensors of its own;
     a failed capture raises; a second call builds no flow pattern; the
     eager loop copies no state back; the sharded path asks for the graphed
-    loop and runs eagerly on the CPU;
+    loop and runs eagerly on the CPU; aerosol1d's steps, graphed and eager,
+    count each split kernel once a step;
   * the sharded loop on one rank: the split halo exchange runs once a
     step and never inside the step, the in-step one once a step and only
     inside it, no host exchange between two replays, graphed and eager,
@@ -389,6 +390,56 @@ def test_graphed_path_equals_eager_and_counts_replays(eager_graphs):
                       for k in counts}
     _assert_same(got, eager[0], torch.stack(
         [getattr(eager[1], k) for k in PPT], 1), eager[1].profiles)
+
+
+class CountingCapture(L.CapturedStep):
+    """Stands in for a CUDA graph's capture on the CPU and counts as the
+    real one does: the warm-up's launches thrown away, the recorded step's
+    taken as one replay's (``cuda_build.take_launches``), and a replay
+    that runs the step eagerly and counts nothing itself."""
+
+    def __init__(self, loop, state0, key, tables):
+        self.loop, self.key, self.tables = loop, key, tables
+        loop.state = KidState(*[t.clone() for t in state0])
+        cuda_build.take_launches(loop.advance)
+        self.launches = cuda_build.take_launches(loop.step_in_place)
+        self.graph = SimpleNamespace(replay=lambda: cuda_build.take_launches(
+            loop.step_in_place))
+
+
+def _counted(real):
+    """``real`` counting each call as a launch, as on a card."""
+    def fn(*args, **kwargs):
+        fn.launches += 1
+        return real(*args, **kwargs)
+
+    fn.launches = 0
+    return fn
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_aerosol_steps_count_the_split_kernels(graphs, monkeypatch):
+    # n steps of aerosol1d, graphed through a capture that counts as the
+    # real one and eagerly, with the split step's kernels counting their
+    # CPU calls: each counts n, the capture adding one replay's launches a
+    # step
+    monkeypatch.setattr(L, "GRAPH_DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(L, "CapturedStep", CountingCapture)
+    for mod, name in ((ADV, "advect"), (TS, "table_stage"),
+                      (A, "fused_rates"), (A, "fused_post")):
+        monkeypatch.setattr(mod, name, _counted(getattr(mod, name)))
+    case, tables, st0 = _small("aerosol1d")
+    cuda_build.reset_launch_counts()
+    try:
+        got = L.simulate(st0, tables, case, N_STEPS, NAMES, ISTEP0,
+                         device="cpu", graphs=graphs)
+        counts = cuda_build.launch_counts()
+    finally:
+        cuda_build.reset_launch_counts()
+    split = ("advect", "table_stage", "fused_rates", "fused_post")
+    assert counts == {k: N_STEPS if k in split else 0 for k in counts}
+    want = _per_step_loop(st0, tables, case, N_STEPS, NAMES, ISTEP0)
+    _assert_same(got, *want)
 
 
 @pytest.mark.parametrize("change", ["same", "dtype", "tables", "names",
