@@ -9,7 +9,8 @@ on failure:
 
   1. card and build: the card's name and power limit, then the kernels
      of ``kid_tpu_torch/micro/csrc`` (``advect``, ``table_stage``,
-     ``fused_step``, ``fused_rates``, ``fused_post``, ``fused_kid_step``),
+     ``fused_step``, ``fused_rates``, ``lookup_stage``, ``fused_post``,
+     ``fused_kid_step``),
      built together, and what the card gives each instantiation
      (registers, spill bytes, static shared bytes, active blocks per SM at
      nz 120 and 256; ``advect`` at nz 60, 120 and 130, 5, 9 and 12
@@ -43,7 +44,8 @@ on failure:
      finite and non-negative, and ``fused_step`` timed against its plain
      version on the main path's own inputs;
   3b. the aerosol main path: aerosol1d widened the same way, through
-     ``table_stage`` -> ``fused_rates`` -> lookups -> ``fused_post``
+     ``table_stage`` -> ``fused_rates`` -> ``lookup_stage`` ->
+     ``fused_post``
      (each launched once per step), with the same checks, profile and
      timings, and the share of cells and of warps in which each guard of
      the two split kernels runs on their last inputs;
@@ -72,6 +74,17 @@ on failure:
      printed apart; at mixed1's and cumulus2d's shapes in float32 its
      ms/launch beside its byte bound and its target, and the plain
      composition's ms;
+  2g. (run after 2f) ``lookup_stage``, the aerosol step's phase-14
+     lookups (CCN activation and the ``tnc_wev`` gather), against its
+     plain version (``solver.aerosol_lookup_stage``): on the arguments of
+     aerosol1d's steps 0, 200 and 700 (float32 at 8192 columns, float64 at
+     1024) and on a cold column where DeMott's and Koop's nucleation
+     fire: float64 ``xnc_act`` within 1e-12 relative, ``wev`` exact and
+     ``fused_post``'s outputs from the kernel's lookups within 1e-12 of
+     those from the plain ones; float32 the cells whose lookup flipped at
+     a knife edge counted and bounded; a digest a batch and a combined
+     one; its ms/launch at 8192 and 65536 columns beside its byte bound
+     and the plain version's ms;
   4. end-to-end parity on the card: mixed1, warm1_recon and aerosol1d at
      256 columns and orographic2d at its own 64 x 60, from a seeded state
      at step 150, 20 steps through the kernel path and through the plain
@@ -183,7 +196,7 @@ plain runs of phase 4 run the eager loop.  ``batched_microphysics`` and
 ``mp_driver_3d`` called on their own replay a CUDA graph of the call
 (``kid_tpu_torch/micro/graphs.py``), dropped after phases 5b and 8.
 
-Phases 2, 2b, 2c, 2d, 2e and 2f print a SHA-256 digest (first 16 hex
+Phases 2, 2b, 2c, 2d, 2e, 2f and 2g print a SHA-256 digest (first 16 hex
 digits) of each kernel's outputs on each batch, and a combined digest per
 kernel (phase 2d's apart): the inputs are seeded and the kernels
 deterministic,
@@ -281,7 +294,7 @@ CHAOS_CASES = ("mixed1", "deep1", "aerosol1d")
 BATCHED_CELLS = {"mixed": (False, False, ("table_stage", "fused_step")),
                  "mixed, rates": (False, True, ("table_stage", "fused_step")),
                  "aerosol": (True, False, ("table_stage", "fused_rates",
-                                           "fused_post"))}
+                                           "lookup_stage", "fused_post"))}
 # phase 10: steps of the 1-D cases; (columns, steps) of the 2-D cases
 ORACLE_STEPS = 100
 ORACLE_2D = (16, 50)
@@ -628,10 +641,12 @@ def phase_resources():
     for name in kernels():
         if name == "advect":
             continue
+        # lookup_stage has no flag: its blocks take 256 cells at any nz
+        flags = (False,) if name == "lookup_stage" else (False, True)
         for nz in (120, 256):
             for dtype in (torch.float32, torch.float64):
                 for warm in (False, True):
-                    for want_rates in (False, True):
+                    for want_rates in flags:
                         r = cuda_build.resources(name, nz, dtype, warm,
                                                  want_rates)
                         warps = r["blocks_per_sm"] * ((nz + 31) // 32)
@@ -834,6 +849,8 @@ def kernel_record(name, card, x, launch, plain, n_out_bytes, launches,
 # kid_tpu/micro/pallas_step.py, or the reference's XLA stages
 REPLACES = {"table_stage": "kid_tpu/micro/solver.py:1132,1350",
             "advect": "kid_tpu/driver/loop.py:230-262 (XLA's fusion)",
+            "lookup_stage": "kid_tpu/micro/solver.py::aerosol_lookup_stage "
+                            "(XLA's fusion)",
             **{k: f"kid_tpu/micro/pallas_step.py:{v}" for k, v in (
                 ("fused_step", 353), ("fused_rates", 202),
                 ("fused_post", 266), ("fused_kid_step", 67))}}
@@ -841,7 +858,8 @@ REPLACES = {"table_stage": "kid_tpu/micro/solver.py:1132,1350",
 # launched once a call or a step
 CALL = ("table_stage", "fused_step")
 STEP = ("advect", *CALL)
-SPLIT = ("advect", "table_stage", "fused_rates", "fused_post")
+SPLIT = ("advect", "table_stage", "fused_rates", "lookup_stage",
+         "fused_post")
 KID = ("advect", "table_stage", "fused_kid_step")
 
 
@@ -991,6 +1009,11 @@ def phase_aerosol_main_path(dev, card, res):
 
 # phase 2e: the f64 batch's columns, and the 2-D cases' nz
 TABLE_F64_NCOL, TABLE_2D_NZ = 256, 60
+# phase 2g: aerosol1d's steps whose lookups are checked, the columns of
+# its float32 and float64 runs there, and the widths timed (float32)
+LOOKUP_STEPS = (0, 200, 700)
+LOOKUP_NCOL = {torch.float32: MAIN_NX, torch.float64: 1024}
+LOOKUP_TIMED_NX = (MAIN_NX, 65536)
 
 
 def index_flips(got: dict, want: dict, noise: float) -> tuple:
@@ -1273,6 +1296,182 @@ def phase_advect(dev, card, digests, launches, res):
                 blocks_per_sm=res["blocks_per_sm"], **main, also=record)
 
 
+def lookup_step_inputs(case, dtype, dev, n_steps):
+    """The lookup stage's arguments (state, pres, w, p8, tables, cfg, dt)
+    in step ``n_steps`` of ``case`` from its initial sounding (graphed up
+    to there, then that step eagerly, its lookup stage's arguments kept),
+    and the step's dzq."""
+    import kid_tpu_torch.micro.split_step as A
+    from kid_tpu_torch.driver.loop import initial_state, run_case, simulate
+    from kid_tpu_torch.micro.solver import device_tables
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+    st = (initial_state(case, dtype, dev) if n_steps == 0 else
+          run_case(case, dtype, n_steps=n_steps, device=dev)[0])
+    tables = device_tables(get_tables(iiwarm=case.micro.iiwarm), dtype, dev)
+    kept, last = A.lookup_stage, {}
+
+    def rec(*args, **kwargs):
+        last["args"] = args
+        return kept(*args, **kwargs)
+    rec.launches = kept.launches        # the launch counts on the module's
+    A.lookup_stage = rec
+    try:
+        simulate(st, tables, case, 1, istep0=n_steps, device=dev,
+                 graphs=False)
+    finally:
+        A.lookup_stage = kept
+        kept.launches = rec.launches
+    state, pres, w, p8, tables, cfg, dt_f = last["args"]
+    dzq = torch.broadcast_to(torch.as_tensor(
+        case.grid().dz, dtype=dtype, device=dev), state.qv.shape)
+    return (ColumnState(*[t.clone() for t in state]), pres.clone(),
+            w.clone(), {k: v.clone() for k, v in p8.items()}, tables, cfg,
+            dt_f), dzq
+
+
+def cold_lookup_inputs(dtype, dev, ncol=BATCH_NCOL, nz=40):
+    """The lookup stage's arguments on a cold column where DeMott's and
+    Koop's nucleation fire (the recipe of kidbench/tests/
+    test_kidbench_reference.py::cold_column: 262 K down to 212 K, 50% over
+    ice saturation, a little of every species), tiled over ``ncol``
+    columns with 20% of seeded noise a column, p8 from the plain
+    ``fused_rates`` with its rates; and its dzq and p8's ``pni_inu``."""
+    import kid_tpu_torch.micro.split_step as A
+    from kid_tpu_torch.config import MicroConfig
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.state import ColumnState
+    from kid_tpu_torch.tables.cache import get_tables
+    rng = np.random.default_rng(4)
+    z = (np.arange(nz) + 0.5) * 250.0
+    p = 7.0e4 * np.exp(-z / 8000.0)
+    t = 262.0 - 0.005 * z
+    e_si = np.exp(9.550426 - 5723.265 / t + 3.53068 * np.log(t)
+                  - 0.00728332 * t)
+    qvsi = 0.622 * e_si / (p - e_si)
+    cols = dict(t=t, qv=1.5 * qvsi, qc=np.where(z < 2000, 1e-4, 0.0),
+                qi=np.where(z > 6000, 1e-6, 0.0), qr=np.zeros(nz),
+                qs=np.where(z > 5000, 1e-5, 0.0),
+                qg=np.where(z > 5000, 1e-6, 0.0),
+                ni=np.where(z > 6000, 1e3, 0.0), nr=np.zeros(nz),
+                nc=np.full(nz, 1e8), nwfa=np.full(nz, 3e8),
+                nifa=np.full(nz, 1e6))
+
+    def b(x, noise=0.2):
+        arr = np.broadcast_to(x, (ncol, nz)) * (
+            1.0 + noise * rng.random((ncol, 1)))
+        return torch.tensor(arr, dtype=dtype, device=dev)
+
+    st = ColumnState(**{k: b(v, 0.002 if k == "t" else 0.2)
+                        for k, v in cols.items()})
+    pres = b(p, 0.0)
+    cfg = MicroConfig(iiwarm=False, is_aerosol_aware=True)
+    tables = S.device_tables(get_tables(iiwarm=False), dtype, dev)
+    tv = S._table_stage(*S._prologue(st, pres, cfg), tables, cfg, 10.0)
+    p8 = A.fused_rates_ref(st, pres, tv, cfg, 10.0, True)
+    w = seeded_w(ncol, nz, 4, dtype, dev)
+    return ((st, pres, w, {k: p8[k] for k in S.P8_OUT}, tables, cfg, 10.0),
+            torch.full_like(pres, 250.0), p8["pni_inu"])
+
+
+def lookup_vs_plain(label, args, dzq, digests):
+    """``lookup_stage`` against its plain version on one set of arguments:
+    in float64 ``xnc_act`` within 1e-12 relative and ``wev`` exact, and
+    ``fused_post``'s outputs from the kernel's lookups against those from
+    the plain ones within 1e-12 normalised; in float32 the cells whose
+    lookups moved by more than 1e-5 relative (an index that flipped at a
+    knife edge: a wev bin or the temperature bin of the activation table)
+    counted and bounded as ``equiv_report`` bounds its noise, at most 0.5%
+    of the cells.  Records and prints the batch's digest."""
+    import kid_tpu_torch.micro.split_step as A
+    state, pres, w, p8, tables, cfg, dt_f = args
+    got = A.lookup_stage(*args)
+    want = A.lookup_stage_ref(*args)
+    torch.cuda.synchronize()
+    f64 = state.qv.dtype == torch.float64
+    rel = {k: ((got[k].double() - want[k].double()).abs()
+               / want[k].double().abs()) for k in A.AUX_KEYS}
+    n = state.qv.numel()
+    moved = int(((rel["xnc_act"] > 1e-5) | (rel["wev"] > 1e-5)).sum())
+    worst_x = float(rel["xnc_act"].max())
+    d = record_digest(digests, "lookup_stage", label, got)
+    line = (f"lookup_stage vs plain  {label}: xnc_act worst relative "
+            f"{worst_x:.3e}, wev {int((got['wev'] != want['wev']).sum())} "
+            f"of {n} cells differ, {moved} cells moved by more than 1e-5")
+    if f64:
+        post_k = flat(A.fused_post(state, pres, dzq, p8, got, cfg, dt_f,
+                                   False))
+        post_p = flat(A.fused_post(state, pres, dzq, p8, want, cfg, dt_f,
+                                   False))
+        torch.cuda.synchronize()
+        worst_post = equiv_report(post_k, post_p, 1e-12)
+        n_same = sum(torch.equal(post_k[k], post_p[k]) for k in post_p)
+        line += (f"; fused_post from the kernel's lookups: {n_same} of "
+                 f"{len(post_p)} outputs bit for bit, worst normalised "
+                 f"error {worst_post:.3e} (limit 1e-12)")
+        if worst_x > 1e-12 or not torch.equal(got["wev"], want["wev"]):
+            raise AssertionError(f"lookup_stage {label}: xnc_act "
+                                 f"{worst_x:.3e}, wev differs")
+    elif moved > max(3, 0.005 * n):
+        raise AssertionError(f"lookup_stage {label}: {moved} cells moved")
+    print(f"{line}, digest {d}", flush=True)
+
+
+def phase_lookup_stage(dev, card, digests, launches, res):
+    """``lookup_stage`` (the aerosol step's phase-14 lookups) against its
+    plain version: on aerosol1d's steps ``LOOKUP_STEPS`` in float32 at
+    MAIN_NX columns and float64 at 1024, and on the cold column in both;
+    a digest of each batch and a combined one; in float32 at the widths
+    ``LOOKUP_TIMED_NX``, on step 200's arguments, its ms/launch beside its
+    byte bound and the plain version's ms.  Returns the kernels-line
+    record of MAIN_NX columns, whose launches are ``launches``."""
+    import kid_tpu_torch.micro.split_step as A
+    from kid_tpu_torch.driver.cases import AEROSOL1D
+    for dtype in (torch.float64, torch.float32):
+        case = dataclasses.replace(AEROSOL1D, nx=LOOKUP_NCOL[dtype])
+        for n_steps in LOOKUP_STEPS:
+            args, dzq = lookup_step_inputs(case, dtype, dev, n_steps)
+            lookup_vs_plain(f"aerosol1d step {n_steps} ({case.nx}, "
+                            f"{case.nz}) {str(dtype)[6:]}", args, dzq,
+                            digests)
+        args, dzq, pni_inu = cold_lookup_inputs(dtype, dev)
+        lookup_vs_plain(f"cold column ({BATCH_NCOL}, 40) {str(dtype)[6:]}, "
+                        f"{int((pni_inu > 0).sum())} cells nucleating ice",
+                        args, dzq, digests)
+        if int((pni_inu > 0).sum()) == 0:
+            raise AssertionError("cold column: no ice nucleation")
+    print_digests(digests, "lookup_stage")
+    records = []
+    for ncol in LOOKUP_TIMED_NX:
+        case = dataclasses.replace(AEROSOL1D, nx=ncol)
+        args, _ = lookup_step_inputs(case, torch.float32, dev, 200)
+        state, pres, w, p8, tables, cfg, dt_f = args
+        chans = ([getattr(state, k) for k in A.LOOKUP_STATE] + [pres, w]
+                 + [p8[k] for k in A.LOOKUP_P8])
+        out = torch.empty((len(A.AUX_KEYS), *state.qv.shape),
+                          dtype=state.qv.dtype, device=dev)
+        # the tables, each read once
+        tabs = tuple(getattr(tables, k) for k in A.LOOKUP_TABLES)
+
+        def got_want(args=args):
+            got = A.lookup_stage(*args)
+            want = A.lookup_stage_ref(*args)
+            torch.cuda.synchronize()
+            return got, want
+
+        records.append(kernel_record(
+            "lookup_stage", card, (chans[0][None], *chans[1:], *tabs),
+            lambda chans=chans, tables=tables, out=out, cfg=cfg, dt_f=dt_f:
+            A.launch_lookup(chans, tables, out, cfg, dt_f),
+            lambda args=args: A.lookup_stage_ref(*args),
+            out.numel() * out.element_size(), launches, got_want, res,
+            f"aerosol1d's step 200 ({ncol} columns)"))
+    main, wide = records
+    main["also"] = {"aerosol1d_65536": {k: wide[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}}
+    return main
+
+
 def guard_shares(card, *plain):
     """Where the guards of the aerosol kernels run on the main path's last
     inputs: each guard's mask as ``solver.guarded`` sees it in the plain
@@ -1345,9 +1544,9 @@ def profile_steps(dev, card, st, tables, case, istep0, step_ms,
     ``n`` steps, self device time by kernel, the number of kernels a step
     launches, the device's busy share of the profiled window and each
     hand-written kernel's share of the device time; fails unless each
-    kernel of ``path_kernels`` ran once a step, and unless the only torch
-    gather a step is aerosol-aware configs' ``tnc_wev`` lookup (the table
-    stage gathers inside its kernel).  ``names`` are the streams of the
+    kernel of ``path_kernels`` ran once a step, and unless no torch
+    gather runs (the table stage and the aerosol lookup stage gather
+    inside their kernels).  ``names`` are the streams of the
     timed run, so that the profile replays its captured step (other
     streams would capture one inside the profile)."""
     from kid_tpu_torch.driver.loop import simulate
@@ -1361,7 +1560,7 @@ def profile_steps(dev, card, st, tables, case, istep0, step_ms,
         return
     check_profiled_launches(f"profile of {case.name}", rows, path_kernels)
     gathers = sum(r[2] for r in rows if "gather" in r[0])
-    if gathers != int(case.micro.is_aerosol_aware):
+    if gathers != 0:
         raise AssertionError(f"profile of {case.name}: {gathers} torch "
                              f"gathers a step")
     n_kernels = sum(r[2] for r in rows)
@@ -1427,6 +1626,7 @@ def phase_end_to_end(dev):
                  (TS, "table_stage", TS.table_stage_ref)]
         if case.micro.is_aerosol_aware:
             swaps += [(A, "fused_rates", A.fused_rates_ref),
+                      (A, "lookup_stage", A.lookup_stage_ref),
                       (A, "fused_post", A.fused_post_ref)]
         else:
             swaps += [(F, "fused_step", F.fused_step_ref)]
@@ -2833,6 +3033,9 @@ def main() -> int:
                      paths["mixed1"]["table_stage"], x_mixed, x_aero),
                timed("2f", phase_advect, dev, card, digests,
                      paths["mixed1"]["advect"], res["advect"]),
+               timed("2g", phase_lookup_stage, dev, card, digests,
+                     paths["aerosol1d"]["lookup_stage"],
+                     res["lookup_stage"]),
                *records, *aerosol, *fused]
     del x_mixed, x_aero
     timed("4", phase_end_to_end, dev)

@@ -6,8 +6,9 @@ one CUDA card.
                              [--budget NAME=A,B,C,D]... [--fmad]
 
 Builds the kernels of ``kid_tpu_torch/micro/csrc`` named by ``--kernels``
-(default all six: ``fused_step``, ``fused_kid_step``, ``fused_rates``,
-``fused_post``, ``table_stage``, ``advect``) as shipped, and once more per
+(default all seven: ``fused_step``, ``fused_kid_step``, ``fused_rates``,
+``fused_post``, ``table_stage``, ``advect``, ``lookup_stage``) as
+shipped, and once more per
 ``--budget``: each kernel's register-budget macros of
 ``csrc/thompson.cuh`` (blocks of 128 threads that must fit on an SM) for
 float32 mixed, float32 warm, float64 mixed and float64 warm, set to A,
@@ -28,7 +29,9 @@ builds run in parallel.  Then, on the card:
     float64; mixed and warm; rate profiles on and off; for
     ``fused_rates`` and ``fused_post`` aerosol-aware, plus the cold batch
     of ``chip_smoke.py`` phase 2b, with ``fused_post`` fed the plain
-    path's p8 and lookups; for ``table_stage`` non-aerosol and
+    path's p8 and lookups, and ``lookup_stage`` on the same batches'
+    state, seeded w and p8 without rate profiles; for ``table_stage``
+    non-aerosol and
     aerosol-aware, where the instantiation's third template flag, which
     the SASS labels print as ``rates``, is the aerosol one; for
     ``advect`` the cells of ``chip_smoke.py`` phase 2f in float32 and
@@ -42,8 +45,9 @@ builds run in parallel.  Then, on the card:
     first), on the main paths' own inputs at (8192, 120) float32 after a
     150-step spin-up (``table_stage`` and ``fused_step`` from mixed1's
     default step, ``fused_kid_step`` from its fused driver,
-    ``table_stage``, ``fused_rates`` and ``fused_post`` from aerosol1d's
-    step; the table stage's input is the first 13 rows of the next
+    ``table_stage``, ``fused_rates``, ``lookup_stage`` and ``fused_post``
+    from aerosol1d's step (``lookup_stage`` with a seeded w); the table
+    stage's input is the first 13 rows of the next
     kernel's), and on seeded warm and float64 batches at (8192, 120);
     ``advect`` on phase 2f's mixed1 and cumulus2d cells in float32.
 
@@ -68,14 +72,15 @@ import chip_smoke as C
 from kid_tpu_torch.micro import cuda_build
 
 STEMS = ("fused_step", "fused_kid_step", "fused_rates", "fused_post",
-         "table_stage", "advect")
+         "table_stage", "advect", "lookup_stage")
 _ROWS = ("F32_MIXED", "F32_WARM", "F64_MIXED", "F64_WARM")
 # each kernel's budget macros in csrc/thompson.cuh, in _ROWS order
 BUDGET_MACROS = {
     stem: tuple(f"{prefix}MIN_BLOCKS_{r}" for r in _ROWS)
     for stem, prefix in (("fused_step", ""), ("fused_kid_step", ""),
                          ("fused_rates", "RATES_"), ("fused_post", "POST_"),
-                         ("table_stage", "TABLE_"), ("advect", "ADVECT_"))}
+                         ("table_stage", "TABLE_"), ("advect", "ADVECT_"),
+                         ("lookup_stage", "LOOKUP_"))}
 # advect's instantiations by (warm, rates) of the others' labels: its
 # tracers (5 warm, 9 mixed) and its 2-D flag
 ADVECT_FLAGS = {True: 5, False: 9}
@@ -301,7 +306,7 @@ def step_batches(dev, stems):
 def split_inputs(ncol, nz, dtype, warm, dev, cold=False):
     """Packed seeded inputs of ``fused_rates`` and ``fused_post`` (the
     latter from the plain path's p8 and lookups, so each kernel is held
-    alone) and their config."""
+    alone), their config and the lookup stage's (w, tables)."""
     import kid_tpu_torch.micro.split_step as A
     from kid_tpu_torch.config import MicroConfig
     from kid_tpu_torch.micro import solver as S
@@ -316,16 +321,40 @@ def split_inputs(ncol, nz, dtype, warm, dev, cold=False):
     p8 = A.fused_rates_ref(st, pres, tv, cfg, 10.0, True)
     aux = S.aerosol_lookup_stage(st, pres, w, p8, tables, cfg, 10.0)
     return (A.pack_rates_inputs(st, pres, tv, cfg),
-            A.pack_post_inputs(st, pres, dzq, p8, aux), cfg)
+            A.pack_post_inputs(st, pres, dzq, p8, aux), cfg, (w, tables))
 
 
-def split_launches(label, xa, xb, cfg, dt, rates, stems):
-    """[(label, stem, launch)] of the aerosol kernels in ``stems``."""
+def lookup_launch(xa, xb, w, tables, cfg, dt):
+    """A launch of ``lookup_stage`` on the state rows and pres of
+    ``fused_rates``' packed input ``xa``, ``w`` and the tendency rows of
+    ``fused_post``'s ``xb``, returning its output."""
+    import kid_tpu_torch.micro.split_step as A
+    from kid_tpu_torch.micro import solver as S
+    from kid_tpu_torch.micro.state import ColumnState
+    p8 = dict(zip(S.P8_OUT, xb[14:]))
+    chans = ([xa[ColumnState._fields.index(k)] for k in A.LOOKUP_STATE]
+             + [xa[12], w] + [p8[k] for k in A.LOOKUP_P8])
+
+    def launch():
+        out = torch.empty((len(A.AUX_KEYS), *w.shape), dtype=w.dtype,
+                          device=w.device)
+        A.launch_lookup(chans, tables, out, cfg, dt)
+        return (out,)
+    return launch
+
+
+def split_launches(label, xa, xb, cfg, dt, rates, stems, look):
+    """[(label, stem, launch)] of the aerosol kernels in ``stems``;
+    ``look`` is the lookup stage's (w, tables), which it takes without
+    rate profiles only."""
     import kid_tpu_torch.micro.split_step as A
     out = [(label, "fused_rates",
-            lambda: (A.launch_rates_packed(xa, cfg, dt, rates),)),
-           (label, "fused_post",
-            lambda: A.launch_post_packed(xb, cfg, dt, rates))]
+            lambda: (A.launch_rates_packed(xa, cfg, dt, rates),))]
+    if not rates:
+        out.append((label, "lookup_stage",
+                    lookup_launch(xa, xb, *look, cfg, dt)))
+    out.append((label, "fused_post",
+                lambda: A.launch_post_packed(xb, cfg, dt, rates)))
     return [o for o in out if o[1] in stems]
 
 
@@ -333,16 +362,18 @@ def split_batches(dev, stems):
     """Seeded aerosol-aware inputs of ``fused_rates`` and ``fused_post``,
     as ``step_batches``, and the cold batch of chip_smoke's phase 2b."""
     out = []
-    if not {"fused_rates", "fused_post"} & stems:
+    if not {"fused_rates", "fused_post", "lookup_stage"} & stems:
         return out
     specs = [(nz, dtype, warm, False) for nz in (33, 120, 256)
              for dtype in (F32, F64) for warm in (False, True)]
     specs.append((120, F64, False, True))
     for nz, dtype, warm, cold in specs:
-        xa, xb, cfg = split_inputs(C.BATCH_NCOL, nz, dtype, warm, dev, cold)
+        xa, xb, cfg, look = split_inputs(C.BATCH_NCOL, nz, dtype, warm, dev,
+                                         cold)
         for rates in (False, True):
             label = ("cold " if cold else "") + _label(nz, dtype, warm, rates)
-            out += split_launches(label, xa, xb, cfg, 10.0, rates, stems)
+            out += split_launches(label, xa, xb, cfg, 10.0, rates, stems,
+                                  look)
     return out
 
 
@@ -391,7 +422,7 @@ def timed_inputs(dev, stems):
             kx, prof = last["pack_kid_inputs"]
             out.append((label, "fused_kid_step", kid_launch(
                 kx, prof, case.time_modulation(C.N_SPIN, F32), case, False)))
-    if {"fused_rates", "fused_post", "table_stage"} & stems:
+    if {"fused_rates", "fused_post", "table_stage", "lookup_stage"} & stems:
         case = dataclasses.replace(AEROSOL1D, nx=C.MAIN_NX)
         st, _ = run_case(case, F32, n_steps=C.N_SPIN, device=dev)
         tables = S.device_tables(get_tables(iiwarm=False), F32, dev)
@@ -407,9 +438,10 @@ def timed_inputs(dev, stems):
             out.append((label, "table_stage", table_launch(
                 list(last["pack_rates_inputs"][:13]), tables, case.micro,
                 case.dt)))
+        w = C.seeded_w(C.MAIN_NX, case.nz, 0, F32, dev)
         out += split_launches(label, last["pack_rates_inputs"],
                               last["pack_post_inputs"], case.micro, case.dt,
-                              False, stems)
+                              False, stems, (w, tables))
     for dtype, warm in ((F32, True), (F64, False), (F64, True)):
         label = f"seeded (8192, 120) {str(dtype)[6:]} " \
                 f"{'warm' if warm else 'mixed'}"
@@ -429,9 +461,11 @@ def timed_inputs(dev, stems):
             out.append((label, "fused_step",
                         lambda xb=xb, cfg=cfg: F.launch_packed(xb, cfg, 10.0,
                                                                False)))
-        if {"fused_rates", "fused_post"} & stems:
-            xa, xb, cfg = split_inputs(C.MAIN_NX, 120, dtype, warm, dev)
-            out += split_launches(label, xa, xb, cfg, 10.0, False, stems)
+        if {"fused_rates", "fused_post", "lookup_stage"} & stems:
+            xa, xb, cfg, look = split_inputs(C.MAIN_NX, 120, dtype, warm,
+                                             dev)
+            out += split_launches(label, xa, xb, cfg, 10.0, False, stems,
+                                  look)
     return out + advect_batches(dev, stems, C.ADVECT_TARGETS, (F32,))
 
 
@@ -478,7 +512,9 @@ def main() -> int:
             for nz in (120, 256):
                 for dtype in (F32, F64):
                     for warm in (False, True):
-                        for rates in (False, True):
+                        # lookup_stage has no third flag
+                        for rates in ((False,) if stem == "lookup_stage"
+                                      else (False, True)):
                             r = resources(libs[name][stem], stem, nz, dtype,
                                           warm, rates)
                             label = _label(nz, dtype, warm, rates)

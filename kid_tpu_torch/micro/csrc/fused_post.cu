@@ -8,7 +8,7 @@
 //
 // Boundary: 31 channels go in (12 state + pres + dzq + the 15 p8
 // tendencies of fused_rates.cu + xnc_act and wev, the phase-14 lookups of
-// torch's aerosol lookup stage) and 12 state channels (+ prr_gml, prv_rev,
+// lookup_stage.cu) and 12 state channels (+ prr_gml, prv_rev,
 // pnr_rev) plus 4 per-column precip values come out.  The prologue is
 // re-derived from the raw state for the phase-2 zeroed state and the
 // stale snow moments only; the compiler drops the rest of it.

@@ -70,31 +70,6 @@ constexpr int kNtbC = (int)NTB_C, kNtbI = (int)NTB_I, kNtbI1 = (int)NTB_I1;
 constexpr int kNtbR = (int)NTB_R, kNtbR1 = (int)NTB_R1, kNtbS = (int)NTB_S;
 constexpr int kNtbT = (int)NTB_T, kNtbG = (int)NTB_G, kNtbG1 = (int)NTB_G1;
 constexpr int kNbr = (int)NBR, kNbc = (int)NBC, kNbs = (int)NBS;
-constexpr double kBig = 1073741824.0;  // index.py's _BIG, 2**30
-
-__device__ __forceinline__ int clip(long long v, int lo, int hi) {
-  return (int)(v < lo ? lo : (v > hi ? hi : v));
-}
-
-// index.py::decade_index: the 0-based decade/mantissa index, log10 and
-// pow(10, n) as torch computes them, then the mantissa repair
-template <typename T>
-__device__ __forceinline__ int decade_index(T r, double n2, int ntb) {
-  r = mx(r, (T)1e-38);
-  long long n = trunc_int(floor(log10(r)), (T)-kBig, (T)kBig);
-  T pow10 = pow((T)10.0, (T)n);
-  const T m0 = r / pow10;
-  if (m0 < (T)1.0) {
-    n = n - 1;
-    pow10 = pow10 / (T)10.0;
-  } else if (m0 >= (T)10.0) {
-    n = n + 1;
-    pow10 = pow10 * (T)10.0;
-  }
-  const T m = r / pow10;
-  return clip(trunc_int(m, (T)-kBig, (T)kBig) + 9 * (n - (long long)n2), 1,
-              ntb) - 1;
-}
 
 // index.py::log_bin_index: ``scale`` is nbins / log(bin_last / bin0),
 // folded in double as Python folds it

@@ -7,6 +7,9 @@
 //   fused_rates.cu  prologue -> rates, store p8 (aerosol, phases 2-11)
 //   fused_post.cu   prologue, load p8 and the phase-14 lookups -> post
 //                   (aerosol, phases 12-20)
+//   lookup_stage.cu the phase-14 lookups between fused_rates.cu and
+//                   fused_post.cu (aerosol; rslf, powc, subl_prefactor
+//                   and decade_index below, one thread a cell)
 //   fused_kid_step.cu  advection, Exner map, prologue -> rates -> post
 //   advect.cu       the driver step's advection and provisional state
 //                   (only the MUSCL helpers below: vanleer, face_value)
@@ -94,6 +97,33 @@ template <typename T> __device__ __forceinline__ int trunc_int(T x, T lo,
   if (!(x >= lo)) return (int)lo;
   if (x > hi) return (int)hi;
   return (int)x;
+}
+
+constexpr double kBig = 1073741824.0;  // index.py's _BIG, 2**30
+
+__device__ __forceinline__ int clip(long long v, int lo, int hi) {
+  return (int)(v < lo ? lo : (v > hi ? hi : v));
+}
+
+// index.py::decade_index: the 0-based decade/mantissa index, log10 and
+// pow(10, n) as torch computes them, then the mantissa repair (the table
+// stage's indices and the lookup stage's tnc_wev index)
+template <typename T>
+__device__ __forceinline__ int decade_index(T r, double n2, int ntb) {
+  r = mx(r, (T)1e-38);
+  long long n = trunc_int(floor(log10(r)), (T)-kBig, (T)kBig);
+  T pow10 = pow((T)10.0, (T)n);
+  const T m0 = r / pow10;
+  if (m0 < (T)1.0) {
+    n = n - 1;
+    pow10 = pow10 / (T)10.0;
+  } else if (m0 >= (T)10.0) {
+    n = n + 1;
+    pow10 = pow10 * (T)10.0;
+  }
+  const T m = r / pow10;
+  return clip(trunc_int(m, (T)-kBig, (T)kBig) + 9 * (n - (long long)n2), 1,
+              ntb) - 1;
 }
 
 // The driver's MUSCL transport (kid_tpu_torch/driver/advection.py), shared
@@ -1905,6 +1935,18 @@ inline int block_threads(int nz) {
 #ifndef TABLE_MIN_BLOCKS_F64_WARM
 #define TABLE_MIN_BLOCKS_F64_WARM 4
 #endif
+#ifndef LOOKUP_MIN_BLOCKS_F32_MIXED
+#define LOOKUP_MIN_BLOCKS_F32_MIXED 8
+#endif
+#ifndef LOOKUP_MIN_BLOCKS_F32_WARM
+#define LOOKUP_MIN_BLOCKS_F32_WARM 8
+#endif
+#ifndef LOOKUP_MIN_BLOCKS_F64_MIXED
+#define LOOKUP_MIN_BLOCKS_F64_MIXED 4
+#endif
+#ifndef LOOKUP_MIN_BLOCKS_F64_WARM
+#define LOOKUP_MIN_BLOCKS_F64_WARM 4
+#endif
 #ifndef ADVECT_MIN_BLOCKS_F32_MIXED
 #define ADVECT_MIN_BLOCKS_F32_MIXED 10
 #endif
@@ -1940,6 +1982,12 @@ template <typename T, bool WARM>
 constexpr int kTableMinBlocks = pick_budget<T, WARM>(
     TABLE_MIN_BLOCKS_F32_MIXED, TABLE_MIN_BLOCKS_F32_WARM,
     TABLE_MIN_BLOCKS_F64_MIXED, TABLE_MIN_BLOCKS_F64_WARM);
+// lookup_stage.cu's: warm and mixed configurations run the same
+// arithmetic, each its own instantiation
+template <typename T, bool WARM>
+constexpr int kLookupMinBlocks = pick_budget<T, WARM>(
+    LOOKUP_MIN_BLOCKS_F32_MIXED, LOOKUP_MIN_BLOCKS_F32_WARM,
+    LOOKUP_MIN_BLOCKS_F64_MIXED, LOOKUP_MIN_BLOCKS_F64_WARM);
 // advect.cu's: warm is its set of 5 tracers, mixed those of 9 and 12
 template <typename T, bool WARM>
 constexpr int kAdvectMinBlocks = pick_budget<T, WARM>(

@@ -28,7 +28,7 @@ from .. import constants as c
 from .. import spans
 from ..special import _RSIF_C, _RSLF_C
 from . import solver as S
-from .aerosol import slip_correction
+from .aerosol import _LOG_TA_NA, _LOG_TA_WW, slip_correction
 
 SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kid_tpu_torch"
@@ -72,6 +72,7 @@ def constants_header() -> str:
     derived = {
         "RR1": c.R_R_AXIS[0], "RS1": c.R_S_AXIS[0], "RG1": c.R_G_AXIS[0],
         "RC1": c.R_C_AXIS[0], "RI1": c.R_I_AXIS[0], "NTI1": c.NT_I_AXIS[0],
+        "TNC1": c.T_NC[0],       # tables.index.tnc_index's first bin
         # the table stage's log-spaced bins (tables.index.log_bin_index)
         "DR1": c.DR_BINS[0], "DS1": c.DS_BINS[0],
         "RW_SCALE": float(c.NBR) / math.log(S._DRN / S._DR1),
@@ -99,6 +100,11 @@ def constants_header() -> str:
         derived[f"RSLF_C_{i}"] = v
     for i, v in enumerate(_RSIF_C):
         derived[f"RSIF_C_{i}"] = v
+    # the activation table's log axes, as aerosol.activ_ncloud reads them
+    for i, v in enumerate(_LOG_TA_NA):
+        derived[f"LOG_TA_NA_{i}"] = v
+    for i, v in enumerate(_LOG_TA_WW):
+        derived[f"LOG_TA_WW_{i}"] = v
     for k, v in derived.items():
         lines.append(f"constexpr double {k} = {_lit(v)};")
     rows = ",\n  ".join("{" + ", ".join(_lit(v) for v in r) + "}"
@@ -309,6 +315,7 @@ def wrappers() -> dict:
             "table_stage": table_stage.table_stage,
             "fused_step": fused_step.fused_step,
             "fused_rates": split_step.fused_rates,
+            "lookup_stage": split_step.lookup_stage,
             "fused_post": split_step.fused_post,
             "fused_kid_step": fused_kid_step.fused_kid_step}
 

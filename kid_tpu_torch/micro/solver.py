@@ -18,12 +18,12 @@ branch-free tensor code over a batch of (ncol, nz) columns:
   * aerosol-aware configurations split the step in two around the
     phase-14 table lookups: ``rates_from_tables`` (phases 2-11, plain
     version of ``split_step.fused_rates``), ``aerosol_lookup_stage``
-    (torch ops) and ``post_from_p8`` (phases 12-20, plain version of
-    ``split_step.fused_post``).
+    (plain version of ``split_step.lookup_stage``) and ``post_from_p8``
+    (phases 12-20, plain version of ``split_step.fused_post``).
 
 ``batched_microphysics`` runs the kernel path: ``table_stage``, then
-``fused_step``, or ``fused_rates`` -> lookups -> ``fused_post`` for
-aerosol-aware configurations.  Each wrapper launches its kernel for a
+``fused_step``, or ``fused_rates`` -> ``lookup_stage`` -> ``fused_post``
+for aerosol-aware configurations.  Each wrapper launches its kernel for a
 CUDA tensor and runs its plain version for a CPU tensor.  Phase numbers
 follow SURVEY.md section 3.2b.
 """
@@ -1595,8 +1595,9 @@ def post_from_p8(state: ColumnState, pres, dzq, p8, cfg: MicroConfig,
 
 def aerosol_lookup_stage(state: ColumnState, pres, w1d, p8,
                          tables: DeviceTables, cfg: MicroConfig, dt_f: float):
-    """The two aerosol-mode table lookups of phase 14 (f90:2795-2851), in
-    torch ops between the split kernels.  Both read the provisional
+    """The two aerosol-mode table lookups of phase 14 (f90:2795-2851)
+    between the split kernels: the plain version of
+    ``split_step.lookup_stage``.  Both read the provisional
     (phase-12) state, which depends on the p8 tendencies.  This stage
     re-derives the phase-12 thermodynamics they read from the RAW
     ``state.qc``/``state.nc``, as the reference does (ROADMAP.md Queue 3),
@@ -1645,8 +1646,10 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
 
     ``table_stage`` (``_prologue`` and ``_table_stage``: the lookup
     indices, the gathers and the rates that consume them) -> ``fused_step``;
-    for aerosol-aware configs -> ``fused_rates`` ->
-    ``aerosol_lookup_stage`` (torch ops) -> ``fused_post``.  Each wrapper
+    for aerosol-aware configs -> ``fused_rates`` -> ``lookup_stage``
+    (``aerosol_lookup_stage``) -> ``fused_post``, the first two writing
+    into the rows that the last one's packed input ends with unless
+    ``want_rates``.  Each wrapper
     launches its CUDA kernel for a CUDA tensor and runs its plain version
     for a CPU tensor.  ``w1d`` (the
     cell-centred vertical velocity, m/s) feeds aerosol activation only.
@@ -1669,8 +1672,14 @@ def column_microphysics(state: ColumnState, pres, w1d, dzq, dt,
     tv = T.table_stage(state, pres, tables, cfg, dt_f, out=tv_rows)
     if not cfg.is_aerosol_aware:
         return F.fused_step(state, pres, dzq, tv, cfg, dt_f, want_rates)
-    p8 = A.fused_rates(state, pres, tv, cfg, dt_f, want_rates)
-    aux = aerosol_lookup_stage(state, pres, w1d, p8, tables, cfg, dt_f)
+    # without rate profiles, kernel A's P8_OUT rows and the lookups go
+    # into the rows that fused_post's packed input ends with
+    post = None if want_rates else A.post_out(state)
+    n_p8 = len(P8_OUT)
+    p8 = A.fused_rates(state, pres, tv, cfg, dt_f, want_rates,
+                       out=None if post is None else post[:n_p8])
+    aux = A.lookup_stage(state, pres, w1d, p8, tables, cfg, dt_f,
+                         out=None if post is None else post[n_p8:])
     return A.fused_post(state, pres, dzq, p8, aux, cfg, dt_f, want_rates)
 
 

@@ -123,7 +123,7 @@ def test_call_makes_no_host_sync(name, monkeypatch):
     n_warm = len(calls)
     with NoHostSync():
         out = call()              # what the capture records
-    want = ["table_stage"] + (["fused_rates", "fused_post"]
+    want = ["table_stage"] + (["fused_rates", "lookup_stage", "fused_post"]
                               if name.startswith("aerosol")
                               else ["fused_step"])
     assert calls[n_warm:] == want
@@ -170,7 +170,8 @@ def eager_graphs(monkeypatch):
     monkeypatch.setattr(G, "GRAPH_DEVICE_TYPES", ("cuda", "cpu", "meta"))
     monkeypatch.setattr(G, "capture", eager_capture)
     for mod, name in ((TS, "table_stage"), (F, "fused_step"),
-                      (A, "fused_rates"), (A, "fused_post")):
+                      (A, "fused_rates"), (A, "lookup_stage"),
+                      (A, "fused_post")):
         monkeypatch.setattr(mod, name, _counted(getattr(mod, name)))
     return eager_capture.built
 
@@ -188,7 +189,7 @@ def test_graphed_equals_eager_and_counts_replays(name, eager_graphs):
     # call's
     assert cuda_build.launch_counts() == {k: 3 * n for k, n in
                                           n_eager.items()}
-    assert sum(n_eager.values()) == (3 if name.startswith("aerosol") else 2)
+    assert sum(n_eager.values()) == (4 if name.startswith("aerosol") else 2)
     for out in outs:
         got, want = _leaves(out), _leaves(eager)
         assert len(got) == len(want)

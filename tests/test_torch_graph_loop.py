@@ -226,7 +226,7 @@ def _stub_precip(like):
 
 
 def _stub_kernels(monkeypatch, calls):
-    """Shape-correct stand-ins for the six kernel wrappers."""
+    """Shape-correct stand-ins for the seven kernel wrappers."""
     def advect(st, m, tr, n_adv, out, theta_out=None):
         calls.append("advect")
         assert m.dim() == 0 and m.device == st[0].device == out.device
@@ -250,13 +250,29 @@ def _stub_kernels(monkeypatch, calls):
         return (_stub_state(type(state), state.qv), _stub_precip(state.qv),
                 diag)
 
-    def fused_rates(state, pres, tv, cfg, dt_f, want_rates):
+    def fused_rates(state, pres, tv, cfg, dt_f, want_rates, out=None):
         calls.append("fused_rates")
         keys = S.P8_OUT + (S.P8_RATES if want_rates else ())
-        return {k: torch.empty_like(state.qv) for k in keys}
+        if out is None:
+            return {k: torch.empty_like(state.qv) for k in keys}
+        assert out.shape == (len(keys), *state.qv.shape)
+        return dict(zip(keys, out))
+
+    def lookup_stage(state, pres, w1d, p8, tables, cfg, dt_f, out=None):
+        calls.append("lookup_stage")
+        if out is None:
+            out = torch.empty((2, *state.qv.shape), dtype=state.qv.dtype,
+                              device=state.qv.device)
+        assert out.shape == (2, *state.qv.shape)
+        assert w1d.device == out.device == p8["tten"].device
+        return dict(zip(A.AUX_KEYS, out))
 
     def fused_post(state, pres, dzq, p8, aux, cfg, dt_f, want_rates):
         calls.append("fused_post")
+        # without rate profiles p8 and aux are the last rows of one buffer
+        base = aux["wev"]._base
+        assert want_rates or (base is not None and base is p8["tten"]._base
+                              and base.shape[0] == 31)
         diag = {}
         if want_rates:
             diag = {k: p8[k] for k in S.P8_RATES}
@@ -276,23 +292,30 @@ def _stub_kernels(monkeypatch, calls):
     monkeypatch.setattr(TS, "table_stage", table_stage)
     monkeypatch.setattr(F, "fused_step", fused_step)
     monkeypatch.setattr(A, "fused_rates", fused_rates)
+    monkeypatch.setattr(A, "lookup_stage", lookup_stage)
     monkeypatch.setattr(A, "fused_post", fused_post)
     monkeypatch.setattr(FK, "fused_kid_step", fused_kid_step)
 
 
 @pytest.mark.parametrize("name", list(PATHS) + ["sharded",
-                                                "sharded_in_step"])
+                                                "sharded_in_step",
+                                                "aerosol1d_no_rates"])
 def test_step_makes_no_host_sync(name, monkeypatch):
     # "sharded": rank 0's block of cumulus2d on 2 ranks, its ghost columns
     # read from a Halo; "sharded_in_step": the same, the step filling them
-    # first (Halo.swap), its sends and receives stubbed by a local wrap
+    # first (Halo.swap), its sends and receives stubbed by a local wrap;
+    # "aerosol1d_no_rates": no rate profile, so the split kernels write
+    # into fused_post's packed input
     sharded = name.startswith("sharded")
-    case = _path("cumulus2d" if sharded else name, monkeypatch)
+    no_rates = name == "aerosol1d_no_rates"
+    case = _path("cumulus2d" if sharded else
+                 "aerosol1d" if no_rates else name, monkeypatch)
     calls = []
     _stub_kernels(monkeypatch, calls)
     dev, dtype = torch.device("meta"), torch.float32
     tables = S.DeviceTables(*[t.to(dev) for t in _tables(case, dtype)])
-    names = L.ALL_PROFILE_NAMES
+    names = tuple(n for n in L.ALL_PROFILE_NAMES
+                  if not (no_rates and n in L.RATE_NAMES))
     lo, hi = M.column_block(case.nx, 0, 2) if sharded else (0, case.nx)
     halo = M.Halo(case, dtype, dev)
     ghosts = halo if sharded else None
@@ -319,12 +342,14 @@ def test_step_makes_no_host_sync(name, monkeypatch):
             "cumulus2d": ["advect", "table_stage", "fused_step"],
             "fused": ["advect", "table_stage", "fused_kid_step"],
             "aerosol1d": ["advect", "table_stage", "fused_rates",
-                          "fused_post"],
+                          "lookup_stage", "fused_post"],
             "sharded": ["advect", "table_stage", "fused_step"],
             "sharded_in_step": ["ring", "advect", "table_stage",
-                                "fused_step"]}[name]
+                                "fused_step"]}[
+        "aerosol1d" if no_rates else name]
     assert calls[n_warm:] == want
-    assert loop.profiles["prr_wau"].shape == (L.CHUNK_STEPS,) + shape
+    assert loop.profiles["qr" if no_rates else "prr_wau"].shape == (
+        L.CHUNK_STEPS,) + shape
 
 
 @pytest.mark.parametrize("op", ["item", "float", "nonzero", "mask_index",
@@ -426,7 +451,8 @@ def test_aerosol_steps_count_the_split_kernels(graphs, monkeypatch):
     monkeypatch.setattr(L, "GRAPH_DEVICE_TYPES", ("cuda", "cpu"))
     monkeypatch.setattr(L, "CapturedStep", CountingCapture)
     for mod, name in ((ADV, "advect"), (TS, "table_stage"),
-                      (A, "fused_rates"), (A, "fused_post")):
+                      (A, "fused_rates"), (A, "lookup_stage"),
+                      (A, "fused_post")):
         monkeypatch.setattr(mod, name, _counted(getattr(mod, name)))
     case, tables, st0 = _small("aerosol1d")
     cuda_build.reset_launch_counts()
@@ -436,9 +462,39 @@ def test_aerosol_steps_count_the_split_kernels(graphs, monkeypatch):
         counts = cuda_build.launch_counts()
     finally:
         cuda_build.reset_launch_counts()
-    split = ("advect", "table_stage", "fused_rates", "fused_post")
+    split = ("advect", "table_stage", "fused_rates", "lookup_stage",
+             "fused_post")
     assert counts == {k: N_STEPS if k in split else 0 for k in counts}
+    assert counts["lookup_stage"] == counts["fused_rates"]
     want = _per_step_loop(st0, tables, case, N_STEPS, NAMES, ISTEP0)
+    _assert_same(got, *want)
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_aerosol_steps_without_rates_count_the_lookup_kernel(graphs,
+                                                             monkeypatch):
+    # as above without a rate profile, where fused_rates and the lookup
+    # stage write into the rows of fused_post's packed input: n steps, n
+    # launches of each kernel, the per-step loop's bits
+    monkeypatch.setattr(L, "GRAPH_DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(L, "CapturedStep", CountingCapture)
+    for mod, name in ((ADV, "advect"), (TS, "table_stage"),
+                      (A, "fused_rates"), (A, "lookup_stage"),
+                      (A, "fused_post")):
+        monkeypatch.setattr(mod, name, _counted(getattr(mod, name)))
+    names = tuple(n for n in NAMES if n not in L.RATE_NAMES)
+    case, tables, st0 = _small("aerosol1d")
+    cuda_build.reset_launch_counts()
+    try:
+        got = L.simulate(st0, tables, case, N_STEPS, names, ISTEP0,
+                         device="cpu", graphs=graphs)
+        counts = cuda_build.launch_counts()
+    finally:
+        cuda_build.reset_launch_counts()
+    split = ("advect", "table_stage", "fused_rates", "lookup_stage",
+             "fused_post")
+    assert counts == {k: N_STEPS if k in split else 0 for k in counts}
+    want = _per_step_loop(st0, tables, case, N_STEPS, names, ISTEP0)
     _assert_same(got, *want)
 
 

@@ -66,9 +66,9 @@ def aerosol1d_step():
     got = {}
     rates, post = A.fused_rates, A.fused_post
 
-    def rec_rates(state, pres, tv, cfg, dt_f, want_rates):
+    def rec_rates(state, pres, tv, cfg, dt_f, want_rates, out=None):
         got.update(st=state, pres=pres, tv=tv, cfg=cfg, dt=dt_f)
-        got["p8"] = rates(state, pres, tv, cfg, dt_f, want_rates)
+        got["p8"] = rates(state, pres, tv, cfg, dt_f, want_rates, out)
         return got["p8"]
 
     def rec_post(state, pres, dzq, p8, aux, cfg, dt_f, want_rates):

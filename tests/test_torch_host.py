@@ -301,7 +301,7 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
                 a for a in args if hasattr(a, "is_aerosol_aware"))))
         return launch
 
-    packed = torch.zeros(1, 2, 3)
+    packed = torch.zeros(31, 2, 3)
     last = {"pack_inputs": packed, "pack_kid_inputs": (packed, packed),
             "pack_rates_inputs": packed, "pack_post_inputs": packed}
     monkeypatch.setattr(loop, "run_case", lambda *a, **k: (None, None))
@@ -312,6 +312,7 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
     monkeypatch.setattr(FK, "launch_kid_packed", stub("fused_kid_step"))
     monkeypatch.setattr(ss, "launch_rates_packed", stub("fused_rates"))
     monkeypatch.setattr(ss, "launch_post_packed", stub("fused_post"))
+    monkeypatch.setattr(ss, "launch_lookup", stub("lookup_stage"))
     monkeypatch.setattr(ts, "launch", stub("table_stage"))
     monkeypatch.setattr(C, "advect_inputs", lambda cell, dtype, dev: (
         SimpleNamespace(qv=packed[0]), None, None, 5))
@@ -321,14 +322,15 @@ def test_kernel_budget_timed_launches_take_their_own_case(monkeypatch):
     for label, stem, fn in launches:
         fn()
     # the main paths' launches first, each with its own case's config
-    assert [s[0] for s in seen[:6]] == ["table_stage", "fused_step",
+    assert [s[0] for s in seen[:7]] == ["table_stage", "fused_step",
                                         "fused_kid_step", "table_stage",
-                                        "fused_rates", "fused_post"]
-    assert [s[2].is_aerosol_aware for s in seen[:6]] == [False] * 3 + [
-        True] * 3
+                                        "fused_rates", "lookup_stage",
+                                        "fused_post"]
+    assert [s[2].is_aerosol_aware for s in seen[:7]] == [False] * 3 + [
+        True] * 4
     assert [stem for _, stem, _ in launches] == [s[0] for s in seen]
     # then advect on the loops' two cells
-    assert len(launches) == 6 + 3 * 4 + 2
+    assert len(launches) == 7 + 3 * 5 + 2
     assert [stem for _, stem, _ in launches[-2:]] == ["advect"] * 2
 
 
